@@ -9,16 +9,23 @@ runs where JAX is not installed:
 import pytest
 import torch
 
+from vq_voice_swap_torch.models.layers import ResBlock
+from vq_voice_swap_torch.ops import fused_resblock as frb
 from vq_voice_swap_torch.ops import group_norm as gn
 from vq_voice_swap_torch.ops import vq_assign as vqa
 
 
 @pytest.fixture
 def cuda_gen():
+    """A seeded CUDA generator, with TF32 off for matmuls and cuDNN
+    convolutions (the plain versions' reference arithmetic) during the test."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.Generator(device="cuda").manual_seed(0)
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.Generator(device="cuda").manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 @pytest.mark.cuda
@@ -73,3 +80,38 @@ def test_vq_kernel_ties_take_lowest_index(cuda_gen):
     idx, used = vqa.vq_assign(d, x)
     assert idx.tolist() == [9, 9, 9, 3]
     assert torch.nonzero(used).flatten().tolist() == [3, 9]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("c1,c2,cout,t,dilation,film", [
+    (64, 0, 64, 300, 2, True),      # identity skip, ragged last tile
+    (64, 64, 64, 250, 2, True),     # two inputs, skip_proj
+    (192, 0, 64, 333, 1, False),    # the 192-channel up block, no FiLM
+    (32, 0, 48, 1000, 4, True),     # outputs not a multiple of 64
+    (128, 0, 160, 130, 7, True),    # three output passes, widest halo
+])
+def test_fused_resblock_matches_plain(cuda_gen, dtype, tol, c1, c2, cout, t,
+                                      dilation, film):
+    """The kernel pair against fused_resblock_plain on random parameters:
+    |got - want| <= tol * (1 + |want|) (one bf16 rounding of h1 can flip
+    and carry through GroupNorm-2 and conv_out)."""
+    block = ResBlock(c1 + c2, cout, 24 if film else None, dilation=dilation)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(0.3 * torch.randn(p.shape, generator=cuda_gen, device="cuda"))
+    block = block.cuda().eval()
+    x = torch.randn(2, c1, t, generator=cuda_gen, device="cuda").to(dtype)
+    x2 = (torch.randn(2, c2, t, generator=cuda_gen, device="cuda").to(dtype)
+          if c2 else None)
+    emb = (torch.randn(2, 24, generator=cuda_gen, device="cuda").to(dtype)
+           if film else None)
+    launches = (frb.fused_resblock_stats.launches, frb.fused_resblock_apply.launches)
+    with torch.no_grad():
+        got = frb.fused_resblock(block, x, emb, x2).float()
+        want = frb.fused_resblock_plain(block, x, emb, x2).float()
+    torch.cuda.synchronize()
+    assert got.shape == (2, cout, t)
+    assert ((got - want).abs() - tol * want.abs()).max().item() <= tol
+    assert frb.fused_resblock_stats.launches == launches[0] + 1
+    assert frb.fused_resblock_apply.launches == launches[1] + 1

@@ -1,5 +1,6 @@
 from .process import Diffusion, broadcast_to_batch
 from .schedules import CosSchedule, ExpSchedule, Schedule, make_schedule
+from .warp import make_warp
 
 __all__ = [
     "Diffusion",
@@ -8,4 +9,5 @@ __all__ = [
     "ExpSchedule",
     "CosSchedule",
     "make_schedule",
+    "make_warp",
 ]

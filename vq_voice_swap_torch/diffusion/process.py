@@ -4,16 +4,19 @@ DDPM, DDIM and DPM-Solver++(2M) samplers.
 Each sampler is a Python loop over steps (the JAX package's ``lax.scan``).
 All sampler math is float32 whatever the model's compute dtype. Noise comes
 from an explicit ``torch.Generator``; the per-step functions take their
-noise as an argument so tests can hand both packages the same draw.
+noise as an argument so tests can hand both packages the same draw. Every
+sampler takes an optional time ``warp`` (``warp.py``), applied to the
+float32 grid times as the JAX samplers apply it.
 """
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .schedules import Schedule
+from .warp import TimeWarp
 
 __all__ = ["Diffusion", "broadcast_to_batch"]
 
@@ -25,10 +28,23 @@ def broadcast_to_batch(ts: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return ts.reshape(ts.shape + (1,) * (x.ndim - ts.ndim)).to(x.dtype)
 
 
-def _grid_time(i: int, steps: int) -> float:
+def _grid_time(i: int, steps: int, warp: Optional[TimeWarp] = None) -> float:
     """Time at grid index i (i=0 -> 1.0, i=steps -> 0.0), rounded as the
-    JAX samplers round it: float32(steps - i) * float32(1 / steps)."""
-    return float(np.float32(steps - i) * np.float32(1.0 / steps))
+    JAX samplers round it: float32(steps - i) * float32(1 / steps), then
+    warped in float32."""
+    t = torch.tensor(np.float32(steps - i) * np.float32(1.0 / steps))
+    return (t if warp is None else warp(t)).item()
+
+
+def _step_time(i: int, steps: int, warp: Optional[TimeWarp]) -> Tuple[float, float]:
+    """(t, step) of reverse step i of the DDPM and DDIM samplers: without a
+    warp the grid time and 1 / steps; with one, warp(t) and the warped step
+    warp(t) - warp(t - 1/steps), all in float32."""
+    if warp is None:
+        return _grid_time(i, steps), 1.0 / steps
+    t = torch.tensor(_grid_time(i, steps), dtype=torch.float32)
+    dt = float(np.float32(1.0 / steps))
+    return warp(t).item(), (warp(t) - warp(t - dt)).item()
 
 
 def _clamp_x0(x0: torch.Tensor) -> torch.Tensor:
@@ -105,15 +121,17 @@ class Diffusion:
         generator: Optional[torch.Generator] = None,
         sigma_large: bool = False,
         constrain: bool = False,
+        warp: Optional[TimeWarp] = None,
     ) -> torch.Tensor:
         """Ancestral sampling from x_T in ``steps`` reverse steps; the
-        per-step noise is drawn from ``generator`` (none on the last step)."""
-        dt = 1.0 / steps
+        per-step noise is drawn from ``generator`` (none on the last step).
+        ``warp`` remaps the times, with the warped step size
+        warp(t) - warp(t - 1/steps)."""
         x_t = x_T
         for i in range(steps):
+            t, dt = _step_time(i, steps, warp)
             ts = torch.full(
-                (x_T.shape[0],), _grid_time(i, steps),
-                dtype=torch.float32, device=x_T.device,
+                (x_T.shape[0],), t, dtype=torch.float32, device=x_T.device
             )
             eps = predictor(x_t, ts)
             if i == steps - 1:
@@ -164,15 +182,16 @@ class Diffusion:
         generator: Optional[torch.Generator] = None,
         eta: float = 0.0,
         constrain: bool = False,
+        warp: Optional[TimeWarp] = None,
     ) -> torch.Tensor:
         """DDIM sampler; deterministic at eta=0. The final step lands on
-        t=0, where it returns the predicted x0 exactly."""
-        dt = 1.0 / steps
+        t=0, where it returns the predicted x0 exactly. Same warp semantics
+        as ``ddpm_sample``."""
         x_t = x_T
         for i in range(steps):
+            t, dt = _step_time(i, steps, warp)
             ts = torch.full(
-                (x_T.shape[0],), _grid_time(i, steps),
-                dtype=torch.float32, device=x_T.device,
+                (x_T.shape[0],), t, dtype=torch.float32, device=x_T.device
             )
             eps = predictor(x_t, ts)
             if eta and i < steps - 1:
@@ -193,6 +212,7 @@ class Diffusion:
         predictor: PredictorFn,
         steps: int,
         constrain: bool = False,
+        warp: Optional[TimeWarp] = None,
     ) -> torch.Tensor:
         """DPM-Solver++(2M) (Lu et al. 2022) in half-log-SNR space
         lambda = log(alpha / sigma), alpha = sqrt(abar), sigma = sqrt(1-abar):
@@ -204,16 +224,16 @@ class Diffusion:
         the ratio (alpha sigma_next) / (sigma alpha_next), exactly 0 on the
         final step (sigma_next = 0), so the sampler lands on x0 there and
         never forms the infinite lambda_next. Deterministic: it draws no
-        noise.
+        noise. ``warp`` maps every grid time t to warp(t).
         """
         x = x_T
         x0_prev = lam_prev = None
         for i in range(steps):
             ts = torch.full(
-                (x_T.shape[0],), _grid_time(i, steps),
+                (x_T.shape[0],), _grid_time(i, steps, warp),
                 dtype=torch.float32, device=x_T.device,
             )
-            ts_next = torch.full_like(ts, _grid_time(i + 1, steps))
+            ts_next = torch.full_like(ts, _grid_time(i + 1, steps, warp))
 
             eps = predictor(x, ts)
             abar_t = broadcast_to_batch(self.schedule(ts), x)

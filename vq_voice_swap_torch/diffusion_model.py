@@ -20,6 +20,8 @@ class DiffusionModel(ModelBase):
     ``dropout`` and ``remat`` are training settings, kept so checkpoints
     round-trip between the packages; this serving port runs neither.
     ``act_int8_min_t`` (int8 activation storage) is not ported.
+    ``fuse_levels`` is a serving option of the UNet predictor (see
+    ``UNetPredictor``), set at load time and never saved.
     """
 
     def __init__(
@@ -33,6 +35,7 @@ class DiffusionModel(ModelBase):
         dtype: Optional[str] = None,
         remat: Union[bool, str] = False,
         act_int8_min_t: int = 0,
+        fuse_levels: int = 0,
     ):
         super().__init__()
         if act_int8_min_t:
@@ -54,6 +57,7 @@ class DiffusionModel(ModelBase):
             cond_channels=cond_channels,
             num_labels=num_labels,
             dtype=self.compute_dtype,
+            fuse_levels=fuse_levels,
         )
         self.diffusion = Diffusion(make_schedule(schedule_name))
 

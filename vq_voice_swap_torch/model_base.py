@@ -1,6 +1,6 @@
 """Self-describing models: a registry of model classes, save/load through the
 JAX package's ``.npz`` format (``ModelBase.load`` builds whatever class the
-manifest names), and the serving ``dtype`` override.
+manifest names), and the serving overrides ``dtype`` and ``fuse_levels``.
 
 In the JAX package a model is a config object and its variables travel
 separately; here a model is an ``nn.Module`` that owns its weights, so
@@ -45,12 +45,15 @@ class ModelBase(nn.Module):
 
     @classmethod
     def load(
-        cls, path: str, dtype: Optional[str] = None, device=None
+        cls, path: str, dtype: Optional[str] = None, device=None,
+        fuse_levels: int = 0,
     ) -> "ModelBase":
         """Rebuild the model a checkpoint describes, on ``device`` (CUDA
         unless named). The class comes from the manifest and must be ``cls``
         or a subclass. ``dtype`` overrides the saved compute dtype (params
-        stay float32), e.g. "bfloat16" for serving."""
+        stay float32), e.g. "bfloat16" for serving; ``fuse_levels`` > 0
+        runs the UNet predictor's first levels through the fused ResBlock
+        kernels. Neither is written back by ``save``."""
         class_name, kwargs, flat = load_checkpoint(path)
         _ensure_registered()
         model_cls = _REGISTRY.get(class_name)
@@ -62,6 +65,8 @@ class ModelBase(nn.Module):
             )
         if dtype is not None:
             kwargs = {**kwargs, "dtype": dtype}
+        if fuse_levels:
+            kwargs = {**kwargs, "fuse_levels": fuse_levels}
         device = resolve_device(device)
         model = model_cls(**kwargs)
         model.load_state_dict(params_from_jax(flat))

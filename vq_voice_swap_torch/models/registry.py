@@ -21,14 +21,17 @@ def make_predictor(
     num_labels: Optional[int] = None,
     cond_channels: Optional[int] = None,
     dtype: Optional[torch.dtype] = None,
+    fuse_levels: int = 0,
 ) -> nn.Module:
-    """Create an epsilon-predictor module from a human-readable name."""
+    """Create an epsilon-predictor module from a human-readable name;
+    ``fuse_levels`` is UNetPredictor's serving option."""
     if pred_name == "unet":
         return UNetPredictor(
             base_channels=base_channels,
             cond_channels=cond_channels,
             num_labels=num_labels,
             dtype=dtype,
+            fuse_levels=fuse_levels,
         )
     if pred_name == "wavegrad":
         raise NotImplementedError(_WAVEGRAD)

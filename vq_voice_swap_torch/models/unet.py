@@ -5,23 +5,35 @@ Public inputs and outputs are channel-last [N, T, C]; the blocks run on
 [N, C, T]. ``dtype`` is the compute dtype (None = float32): inputs are cast
 to it, parameters stay float32 and are cast per op, and the output is
 float32.
+
+``UNetPredictor(fuse_levels=K)`` is the counterpart of the JAX package's
+``attic/packed_unet.py::packed_unet_predict(pack_levels=0, fuse_levels=K)``:
+the same-resolution ResBlocks of the first K pyramid levels run through
+the fused ResBlock kernel pair (``ops/fused_resblock.py``). The TPU layout
+trick of that module (packing 64 channels into 128 lanes) has no
+counterpart here.
 """
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ..ops.fused_resblock import fusable, fused_resblock
 from .layers import (
     Conv1d,
     GroupNorm,
     ResBlock,
     TimeEmbedding,
+    adaptive_group_count,
     channels_first,
     gelu,
     linear,
     nearest_resize_1d,
 )
+
+# Routes of a block in UNetPredictor.forward.
+_PLAIN, _FUSED, _FUSED_TWO_INPUTS = "plain", "fused", "fused, two inputs"
 
 __all__ = ["UNetPredictor", "UNetEncoder"]
 
@@ -32,6 +44,14 @@ class UNetPredictor(nn.Module):
     x: [N, T, in_channels]; ts: [N] in [0, 1]; cond (iff cond_channels):
     [N, T1, cond_channels]; labels (iff num_labels): [N] ints.
     Output: [N, T, out_channels] float32.
+
+    ``fuse_levels`` (a serving option; parameters are the same for every
+    value) routes the same-resolution down and up blocks of pyramid levels
+    below it, and the middle blocks when the deepest level is below it,
+    through the fused ResBlock kernels where their dilation fits the
+    kernels' halo. An up block takes its skip as a second input when the
+    concat boundary falls on a GroupNorm group edge, else on the
+    materialised concat. Resize blocks and the in/out layers never fuse.
     """
 
     def __init__(
@@ -45,6 +65,7 @@ class UNetPredictor(nn.Module):
         in_channels: int = 1,
         out_channels: int = 1,
         dtype: Optional[torch.dtype] = None,
+        fuse_levels: int = 0,
     ):
         super().__init__()
         ch = base_channels
@@ -54,6 +75,11 @@ class UNetPredictor(nn.Module):
         self.cond_channels = cond_channels
         self.num_labels = num_labels
         self.dtype = dtype
+        self.fuse_levels = fuse_levels
+        last = len(self.channel_mult) - 1
+
+        def route(block: ResBlock, depth: int) -> str:
+            return _FUSED if depth < fuse_levels and fusable(block) else _PLAIN
 
         self.time_embed = TimeEmbedding(embed_dim)
         self.time_embed_extra = nn.Linear(embed_dim, embed_dim)
@@ -66,13 +92,16 @@ class UNetPredictor(nn.Module):
         skip_chs = [ch]
         cur = ch
         down = []
+        self.routes: List[str] = []  # down, middle, up blocks in order
         for depth, mult in enumerate(self.channel_mult):
             for _ in range(depth_mult):
                 down.append(ResBlock(cur, mult * ch, embed_dim))
+                self.routes.append(route(down[-1], depth))
                 cur = mult * ch
                 skip_chs.append(cur)
-            if depth != len(self.channel_mult) - 1:
+            if depth != last:
                 down.append(ResBlock(cur, emb_channels=embed_dim, scale_factor=0.5))
+                self.routes.append(_PLAIN)
                 skip_chs.append(cur)
         self.down_blocks = nn.ModuleList(down)
 
@@ -80,14 +109,21 @@ class UNetPredictor(nn.Module):
             ResBlock(cur, emb_channels=embed_dim, dilation=d)
             for d in middle_dilations
         )
+        self.routes += [route(b, last) for b in self.middle_blocks]
 
         up = []
         for depth, mult in list(enumerate(self.channel_mult))[::-1]:
             for _ in range(depth_mult + 1):
-                up.append(ResBlock(cur + skip_chs.pop(), mult * ch, embed_dim))
+                cin = cur + skip_chs.pop()
+                up.append(ResBlock(cin, mult * ch, embed_dim))
+                r = route(up[-1], depth)
+                if r == _FUSED and cur % (cin // adaptive_group_count(cin)) == 0:
+                    r = _FUSED_TWO_INPUTS
+                self.routes.append(r)
                 cur = mult * ch
             if depth:
                 up.append(ResBlock(cur, emb_channels=embed_dim, scale_factor=2.0))
+                self.routes.append(_PLAIN)
         self.up_blocks = nn.ModuleList(up)
 
         self.out_norm = GroupNorm(cur, use_gelu=True)
@@ -119,17 +155,25 @@ class UNetPredictor(nn.Module):
             c = self.cond_proj(channels_first(cond, dtype))
             h = h + nearest_resize_1d(c, h.shape[-1])
 
+        def run(b: ResBlock, r: str, h: torch.Tensor) -> torch.Tensor:
+            return b(h, emb) if r == _PLAIN else fused_resblock(b, h, emb)
+
+        routes = iter(self.routes)
         skips = [h]
         for b in self.down_blocks:
-            h = b(h, emb)
+            h = run(b, next(routes), h)
             skips.append(h)
         for b in self.middle_blocks:
-            h = b(h, emb)
+            h = run(b, next(routes), h)
         for i, b in enumerate(self.up_blocks):
+            r = next(routes)
             # Upsampling blocks (every depth_mult+2-th) take no skip concat.
-            if i % (self.depth_mult + 2) != self.depth_mult + 1:
-                h = torch.cat([h, skips.pop()], dim=1)
-            h = b(h, emb)
+            if i % (self.depth_mult + 2) == self.depth_mult + 1:
+                h = run(b, r, h)
+            elif r == _FUSED_TWO_INPUTS:
+                h = fused_resblock(b, h, emb, x2=skips.pop())
+            else:
+                h = run(b, r, torch.cat([h, skips.pop()], dim=1))
 
         h = self.out_conv(self.out_norm(h))
         return h.transpose(1, 2).float()

@@ -1,0 +1,157 @@
+"""Sample an unconditional or class-conditional diffusion model and write
+.wav files (counterpart of the JAX package's ``sample_diffusion.py``).
+
+One sample goes to --sample-path; with --num-samples, --sample-path is a
+directory of sample_NNNNNN.wav files written --batch-size at a time. Each
+batch draws its x_T, labels and noise from generators seeded from
+(--seed, batch index), so a rerun skips the batches whose files all exist
+and reproduces the rest exactly; files are written atomically (temp file,
+then rename), so an existing file is a complete one. --schedule names a
+time warp (quadratic is the t = s^2 recipe). --fuse-levels K runs the
+same-resolution ResBlocks of the UNet's first K levels through the fused
+ResBlock kernels. Runs on CUDA unless --device names another device.
+
+Classifier guidance (--classifier-path, --classifier-scale), int8
+activations (--act-int8) and --tensor-parallel are not ported yet.
+
+Example:
+    python -m vq_voice_swap_torch.sample_diffusion --checkpoint-path model.npz \\
+        --sampler dpmpp --sample-steps 10 --schedule quadratic --bf16 \\
+        --fuse-levels 2 --num-samples 64 --batch-size 16 --sample-path samples
+"""
+
+import argparse
+import math
+import os
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .data import ChunkWriter
+from .diffusion import make_warp
+from .diffusion_model import DiffusionModel
+from .util import resolve_device
+
+SAMPLE_LEN = 64000
+SAMPLE_RATE = 16000
+
+
+def _generators(seed: int, batch_index: int, device: torch.device) -> List[torch.Generator]:
+    """Three generators (x_T, labels, sampler noise) for one batch, seeded
+    from (seed, batch_index) alone."""
+    states = np.random.SeedSequence([seed, batch_index]).generate_state(3, np.uint64)
+    return [torch.Generator(device=device).manual_seed(int(s) >> 1) for s in states]
+
+
+def sample_batch(args, model: DiffusionModel, warp, batch: int, batch_index: int,
+                 device: torch.device) -> torch.Tensor:
+    """[batch, SAMPLE_LEN, 1] float32 samples of one batch."""
+    gen_x, gen_labels, gen_noise = _generators(args.seed, batch_index, device)
+    x_T = torch.randn((batch, SAMPLE_LEN, 1), generator=gen_x, device=device)
+    labels = None
+    if model.num_labels is not None:
+        if args.target_class is not None:
+            labels = torch.full((batch,), args.target_class, dtype=torch.long,
+                                device=device)
+        else:
+            labels = torch.randint(0, model.num_labels, (batch,), generator=gen_labels,
+                                   device=device)
+
+    def pred(xs, ts):
+        return model.predict_eps(xs, ts, labels=labels)
+
+    diffusion = model.diffusion
+    if args.sampler == "ddim":
+        return diffusion.ddim_sample(x_T, pred, args.sample_steps, generator=gen_noise,
+                                     eta=args.eta, constrain=args.constrain, warp=warp)
+    if args.sampler == "dpmpp":
+        return diffusion.dpmpp_sample(x_T, pred, args.sample_steps,
+                                      constrain=args.constrain, warp=warp)
+    return diffusion.ddpm_sample(x_T, pred, args.sample_steps, generator=gen_noise,
+                                 constrain=args.constrain, warp=warp)
+
+
+def write_wav(path: str, samples: np.ndarray, encoding: str) -> None:
+    """Write atomically: encode to a temp .wav, then rename, so an existing
+    file is always a complete one (the resume path relies on it)."""
+    if not np.isfinite(samples).all():
+        raise SystemExit("the sampler produced non-finite samples")
+    tmp = path + ".tmp.wav"
+    with ChunkWriter(tmp, SAMPLE_RATE, encoding=encoding) as writer:
+        writer.write(samples.reshape(-1))
+    os.replace(tmp, path)
+
+
+@torch.no_grad()
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = arg_parser().parse_args(argv)
+    warp = make_warp(args.schedule)
+    device = resolve_device(args.device)
+    model = DiffusionModel.load(
+        args.checkpoint_path, dtype="bfloat16" if args.bf16 else None,
+        device=device, fuse_levels=args.fuse_levels,
+    )
+    if args.target_class is not None:
+        if model.num_labels is None:
+            raise SystemExit("--target-class needs a class-conditional model")
+        if not 0 <= args.target_class < model.num_labels:
+            raise SystemExit(f"--target-class {args.target_class} out of range for a "
+                             f"{model.num_labels}-class model")
+
+    if args.num_samples is None:
+        sample = sample_batch(args, model, warp, 1, 0, device)
+        write_wav(args.sample_path, sample[0, :, 0].cpu().numpy(), args.encoding)
+        print(f"wrote {args.sample_path}")
+        return
+
+    os.makedirs(args.sample_path, exist_ok=True)
+    num_batches = int(math.ceil(args.num_samples / args.batch_size))
+    for i in range(num_batches):
+        lo = i * args.batch_size
+        hi = min(lo + args.batch_size, args.num_samples)
+        paths = [os.path.join(args.sample_path, f"sample_{c:06}.wav")
+                 for c in range(lo, hi)]
+        if all(os.path.exists(p) for p in paths):
+            continue
+        samples = sample_batch(args, model, warp, args.batch_size, i, device)
+        for seq, path in zip(samples.cpu().numpy(), paths):
+            write_wav(path, seq[:, 0], args.encoding)
+        print(f"generated {hi}/{args.num_samples}")
+
+
+def arg_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter
+    )
+    parser.add_argument("--checkpoint-path", default="model_diffusion.npz", type=str)
+    parser.add_argument("--sample-steps", default=100, type=int)
+    parser.add_argument("--batch-size", default=1, type=int)
+    parser.add_argument("--constrain", action="store_true")
+    parser.add_argument("--sample-path", default="sample.wav", type=str)
+    parser.add_argument("--num-samples", default=None, type=int)
+    parser.add_argument("--target-class", default=None, type=int,
+                        help="class of every sample (class-conditional models); "
+                             "random per sample when unset")
+    parser.add_argument("--schedule", default="linear", type=str,
+                        help="named time warp: linear|quadratic|sqrt|pow:X")
+    parser.add_argument("--encoding", default="linear", type=str)
+    parser.add_argument("--sampler", default="ddpm", type=str,
+                        choices=("ddpm", "ddim", "dpmpp"),
+                        help="ddim / dpmpp allow far fewer steps; dpmpp = "
+                             "DPM-Solver++(2M), second-order")
+    parser.add_argument("--eta", default=0.0, type=float,
+                        help="DDIM stochasticity (0 = deterministic)")
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--bf16", action="store_true",
+                        help="compute in bfloat16 (params stay float32)")
+    parser.add_argument("--fuse-levels", default=0, type=int,
+                        help="run the same-resolution ResBlocks of the UNet's first "
+                             "K levels through the fused ResBlock kernels")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on; never falls back")
+    return parser
+
+
+if __name__ == "__main__":
+    main()
