@@ -8,26 +8,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 1. Device: print the card's name and power limit (nvidia-smi), build the
    CUDA kernels from csrc/ (one nvcc per source, started together).
 2. Kernels vs their plain PyTorch versions at the main paths' shapes, in
-   full float32 (TF32 off): GroupNorm statistics and apply (Triton) at
-   [16, 64, 64000] in f32 and bf16, [16, 512, 250] with and without GELU
-   and FiLM, and a large-mean input (f32 atol 1e-4, bf16 atol 2e-2); VQ
-   assignment (CUDA) at B=3200 and B=3201, C=1024, D=512, and an exact-tie
-   case (indices equal up to true ties, used masks equal); the fused
-   ResBlock pair (CUDA) at the unet64 top levels' shapes, two inputs, no
-   FiLM, dilations 1 and 4 and a ragged T, in f32 and bf16 (atol/rtol 2e-4
-   and 5e-2). Each kernel is timed (CUDA events, warm) beside its bound,
-   its plain version and a library call for the same work where one exists
+   full float32 (TF32 off): GroupNorm statistics (CUDA; as (mean, var) and
+   as the folded (mean, a, b) with FiLM, twice for the same bits) and apply
+   (Triton) at [16, 64, 64000] in f32 and bf16, [16, 512, 250] with and
+   without GELU and FiLM, the CLI's [1, 64, 64000] and a large-mean input
+   (f32 atol 1e-4, bf16 atol 2e-2; statistics 1e-5 / 1e-4 relative); VQ
+   assignment (CUDA, 3xTF32 tensor cores) at B=1, 200, 3200 and 3201,
+   C=1024, D=512, twice for the same bits, and an exact-tie case (indices
+   equal up to true ties at 1e-6 relative in float64, used masks equal);
+   the fused ResBlock pair (CUDA) at the unet64 top levels' shapes, two
+   inputs, no FiLM, dilations 1 and 4 and a ragged T, in f32 and bf16
+   (atol/rtol 2e-4 and 5e-2). Each kernel's device time (a replayed CUDA
+   graph of its calls, kernel_ab.cuda_ms) is printed beside its bound, its
+   plain version and a library call for the same work where one exists
    (none computes a ResBlock; the port's unfused ResBlock is timed as a
-   labelled reference).
+   labelled reference): GroupNorm statistics alone in f32 and bf16, VQ at
+   B=3200 and B=200. The statistics and VQ wrappers, and their library
+   calls, are also timed eagerly (back-to-back calls, host dispatch
+   included), with the host's time per call. Every ticket counter
+   (ops/tickets.py) is 0 after this phase and after the last.
 3. Main paths, each with every launch count set to 0 just before it and
    read just after. The swap: a full-width VQ-VAE (unet64 predictor,
    conv-mfcc-ulaw encoder, 512 x 1024 codebook, 251 labels) on seeded
    weights is saved in the JAX .npz format and driven through
    ``python -m vq_voice_swap_torch.sample_vqvae``'s ``main`` on a 4 s WAV,
    with DPM++ (10 steps) and DDPM (5 steps); asserts 64000 output samples
-   and the launch counts (VQ once per encode, GroupNorm 131 per predictor
-   call). Unconditional sampling: a full-width unet64 DiffusionModel on
-   seeded weights, saved as .npz, driven through
+   and the launch counts (VQ once per encode, GroupNorm statistics and
+   apply 131 each per predictor call). Unconditional sampling: a
+   full-width unet64 DiffusionModel on seeded weights, saved as .npz,
+   driven through
    ``python -m vq_voice_swap_torch.sample_diffusion``'s ``main`` in bf16
    with --fuse-levels 2, 5 quadratic-warped DDPM steps, 2 samples; asserts
    two 4 s WAVs and 10 launches of each fused kernel per step; then one
@@ -35,12 +44,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    f32 (TF32 off) and bf16.
 4. Serving time: encode + 10-step DPM++ decode of 16 clips in f32 (TF32
    convolutions, PyTorch's default) and bf16, a torch.profiler breakdown
-   of one predictor call by kernel class with its kernel launch count, and
-   the launches, device time and host time that the torch ops around the
-   GroupNorm kernels add to that call. Then unconditional sampling of 16
-   clips with 10 quadratic-warped DPM++ steps at fuse_levels 0 and 2 (in
-   turns) in bf16 and f32, and a profile of one bf16 predictor call at
-   each.
+   of one predictor call by kernel class with its kernel launch count; a
+   check that one GroupNorm is two launches with no torch op between them,
+   and the launches, device time and host time of the torch ops left
+   around the kernels (the fused ResBlock's GroupNorm-2 merge and fold).
+   Then unconditional sampling of 16 clips with 10 quadratic-warped DPM++
+   steps at fuse_levels 0 and 2 (in turns) in bf16 and f32, and a profile
+   of one bf16 predictor call at each.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -63,6 +73,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from kernel_ab import cuda_ms, eager_ms  # noqa: E402
 from vq_voice_swap_torch import sample_diffusion, sample_vqvae  # noqa: E402
 from vq_voice_swap_torch.diffusion import make_warp  # noqa: E402
 from vq_voice_swap_torch.diffusion_model import DiffusionModel  # noqa: E402
@@ -71,12 +82,14 @@ from vq_voice_swap_torch.ops import cuda_build  # noqa: E402
 from vq_voice_swap_torch.ops import fused_resblock as frb  # noqa: E402
 from vq_voice_swap_torch.ops import group_norm as gn  # noqa: E402
 from vq_voice_swap_torch.ops import vq_assign as vqa  # noqa: E402
+from vq_voice_swap_torch.ops.tickets import ticket_buffers  # noqa: E402
 from vq_voice_swap_torch.vq_vae import VQVAE  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense tensor cores
+TF32_FLOP_PER_S = 495e12  # dense tensor cores
 
 SAMPLE_RATE = 16000
 SAMPLES = 4 * SAMPLE_RATE
@@ -89,20 +102,6 @@ FUSE_LEVELS = 2
 FUSED_PER_PREDICTOR = 10  # unet64, fuse_levels=2: 4 down and 6 up blocks
 TWO_INPUT_PER_PREDICTOR = 5  # up blocks whose skip is the second input
 EMB = 256  # unet64's embedding width
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn over iters warm launches (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound_ms(n_bytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
@@ -125,7 +124,8 @@ def out_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def check_group_norm(dev, gen):
-    """Stats and apply kernels vs plain; returns their JSON entries."""
+    """Statistics (CUDA) and apply (Triton) kernels vs plain; returns their
+    JSON entries."""
     cases = [
         # (label, shape, dtype, gelu, film, offset, atol)
         ("flagship f32", (BATCH, 64, SAMPLES), torch.float32, True, False, 0.0, 1e-4),
@@ -134,6 +134,7 @@ def check_group_norm(dev, gen):
         ("deep f32 plain", (BATCH, 512, 250), torch.float32, False, False, 0.0, 1e-4),
         ("deep bf16 film+gelu", (BATCH, 512, 250), torch.bfloat16, True, True, 0.0, 2e-2),
         ("large-mean f32", (BATCH, 64, SAMPLES), torch.float32, False, False, 100.0, 1e-4),
+        ("CLI f32 film+gelu", (1, 64, SAMPLES), torch.float32, True, True, 0.0, 1e-4),
     ]
     err_stats = err_apply = 0.0
     for label, shape, dtype, use_gelu, use_film, offset, atol in cases:
@@ -143,68 +144,92 @@ def check_group_norm(dev, gen):
         w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
         b = 0.2 * torch.randn(c, generator=gen, device=dev)
         film = None
-        if use_film:
-            film = tuple(
-                (0.5 * torch.randn(n, c, generator=gen, device=dev)).to(dtype)
-                for _ in range(2)
-            )
+        if use_film:  # the halves of one [N, 2C] projection, as ResBlock passes them
+            film = (0.5 * torch.randn(n, 2 * c, generator=gen, device=dev)).to(
+                dtype).chunk(2, dim=-1)
         mean_k, var_k = gn.group_norm_stats(x, groups)
         mean_p, var_p = gn.group_stats_plain(x, groups)
         e_mean = (mean_k - mean_p).abs().max().item()
         e_var = ((var_k - var_p).abs() / var_p).max().item()
         folded = gn.fold_affine(mean_p, var_p, w, b, 1e-5, film)
+        coeffs = gn.group_norm_coeffs(x, groups, w, b, 1e-5, film)
+        again = gn.group_norm_coeffs(x, groups, w, b, 1e-5, film)
+        same_bits = all(torch.equal(u, v) for u, v in zip(coeffs, again))
+        e_coef = max(((k - p).abs() / p.abs().clamp(min=1.0)).max().item()
+                     for k, p in zip(coeffs, folded))
         y_p = gn.group_norm_apply_plain(x, *folded, use_gelu)
         e_apply = out_err(gn.group_norm_apply(x, *folded, use_gelu), y_p)
         e_full = out_err(gn.group_norm(x, w, b, groups, 1e-5, use_gelu, film), y_p)
         torch.cuda.synchronize()
         print(f"groupnorm {label} {list(shape)}: mean err {e_mean:.3g}, "
-              f"var rel err {e_var:.3g}, apply err {e_apply:.3g}, "
-              f"stats+apply err {e_full:.3g} (atol {atol})")
-        assert e_var <= 1e-4 and e_apply <= atol and e_full <= atol, label
+              f"var rel err {e_var:.3g}, (mean, a, b) rel err {e_coef:.3g}, "
+              f"same bits twice {same_bits}, apply err {e_apply:.3g}, "
+              f"coeffs+apply err {e_full:.3g} (atol {atol})")
+        assert e_mean <= 1e-5 * max(1.0, abs(offset)) and e_var <= 1e-4, label
+        assert e_coef <= 1e-4 and same_bits, label
+        assert e_apply <= atol and e_full <= atol, label
         if dtype == torch.float32:
             err_stats = max(err_stats, e_mean, (var_k - var_p).abs().max().item())
             err_apply = max(err_apply, e_apply)
 
-    # Timing at the largest main-path GroupNorm: [16, 64, 64000] f32.
+    # Timing at the largest main-path GroupNorm, [16, 64, 64000], in f32
+    # (the JSON line) and bf16; x (262 / 131 MB) does not fit in L2.
     n, c, t = BATCH, 64, SAMPLES
     groups = 32
-    x = torch.randn((n, c, t), generator=gen, device=dev)
-    w = torch.ones(c, device=dev)
-    b = torch.zeros(c, device=dev)
-    mean_p, var_p = gn.group_stats_plain(x, groups)
-    folded = gn.fold_affine(mean_p, var_p, w, b, 1e-5)
-    x_bytes = x.numel() * x.element_size()
-    n_chunks = math.ceil(c // groups * t / gn.STATS_CHUNK)
-    stats_ms = cuda_ms(lambda: gn.group_norm_stats(x, groups), 20)
-    stats_plain = cuda_ms(lambda: gn.group_stats_plain(x, groups), 20)
-    stats_lib = cuda_ms(
-        lambda: torch.var_mean(x.view(n * groups, -1), dim=1, correction=0), 20
-    )
-    apply_ms = cuda_ms(lambda: gn.group_norm_apply(x, *folded, True), 20)
-    apply_plain = cuda_ms(lambda: gn.group_norm_apply_plain(x, *folded, True), 20)
-    full_ms = cuda_ms(lambda: gn.group_norm(x, w, b, groups, 1e-5, True), 20)
-    full_lib = cuda_ms(lambda: F.gelu(F.group_norm(x, groups, w, b, 1e-5)), 20)
-    # Stats: x read once, 3 partials per (row, chunk) written; ~4 flops/elem.
-    sb, sby = bound_ms(x_bytes + 3 * 4 * n * groups * n_chunks, 4 * x.numel())
-    # Apply: x read + y written + 3 [N, C] vectors; ~25 flops/elem with erf.
-    ab, aby = bound_ms(2 * x_bytes + 3 * 4 * n * c, 25 * x.numel())
-    print(f"groupnorm timing {[n, c, t]} f32: stats {stats_ms:.4f} ms "
-          f"(plain {stats_plain:.4f}, var_mean {stats_lib:.4f}, bound {sb:.4f}); "
-          f"apply+gelu {apply_ms:.4f} ms (plain {apply_plain:.4f}, bound {ab:.4f}); "
-          f"whole GroupNorm+GELU {full_ms:.4f} ms vs F.group_norm+F.gelu "
-          f"{full_lib:.4f} ms")
-    return [
-        dict(name="group_norm_stats", route="triton",
-             source="vq_voice_swap_torch/ops/group_norm.py",
-             replaces="vq_voice_swap_tpu/ops/fused_norm.py:84",
-             launches=0, max_abs_err=err_stats, ms=stats_ms, plain_ms=stats_plain,
-             bound_ms=sb, bound_by=sby, library_ms=stats_lib),
-        dict(name="group_norm_apply", route="triton",
-             source="vq_voice_swap_torch/ops/group_norm.py",
-             replaces="vq_voice_swap_tpu/ops/fused_norm.py:115",
-             launches=0, max_abs_err=err_apply, ms=apply_ms, plain_ms=apply_plain,
-             bound_ms=ab, bound_by=aby, library_ms=None),
-    ]
+    w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    b = 0.2 * torch.randn(c, generator=gen, device=dev)
+    film = (0.5 * torch.randn(n, 2 * c, generator=gen, device=dev)).chunk(2, dim=-1)
+    entries = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, c, t), generator=gen, device=dev).to(dtype)
+        f = tuple(v.to(dtype) for v in film)
+        mean_p, var_p = gn.group_stats_plain(x, groups)
+        folded = gn.fold_affine(mean_p, var_p, w, b, 1e-5)
+        x_bytes = x.numel() * x.element_size()
+        coef_ms = cuda_ms(lambda: gn.group_norm_coeffs(x, groups, w, b, 1e-5, f), 20)
+        stats_ms = cuda_ms(lambda: gn.group_norm_stats(x, groups), 20)
+        coef_plain = cuda_ms(lambda: gn.group_norm_coeffs_plain(x, groups, w, b, 1e-5, f), 20)
+        stats_lib = cuda_ms(
+            lambda: torch.var_mean(x.view(n * groups, -1), dim=1, correction=0), 20
+        )
+        apply_ms = cuda_ms(lambda: gn.group_norm_apply(x, *folded, True), 20)
+        apply_plain = cuda_ms(lambda: gn.group_norm_apply_plain(x, *folded, True), 20)
+        full_ms = cuda_ms(lambda: gn.group_norm(x, w, b, groups, 1e-5, True, f), 20)
+        full_lib = cuda_ms(lambda: F.gelu(F.group_norm(x, groups, w.to(dtype), b.to(dtype),
+                                                       1e-5)), 20)
+        coef_eager, coef_host = eager_ms(
+            lambda: gn.group_norm_coeffs(x, groups, w, b, 1e-5, f), 20)
+        lib_eager, lib_host = eager_ms(
+            lambda: torch.var_mean(x.view(n * groups, -1), dim=1, correction=0), 20)
+        # Statistics: x read once, FiLM read, 3 [N, C] float32 written; ~4 flops/elem.
+        sb, sby = bound_ms(x_bytes + 2 * n * c * x.element_size() + 3 * 4 * n * c,
+                           4 * x.numel())
+        # Apply: x read + y written + 3 [N, C] vectors; ~25 flops/elem with erf.
+        ab, aby = bound_ms(2 * x_bytes + 3 * 4 * n * c, 25 * x.numel())
+        print(f"groupnorm timing {[n, c, t]} {str(dtype)[6:]}: statistics + FiLM fold "
+              f"{coef_ms:.4f} ms, one launch ({100 * sb / coef_ms:.1f}% of its bound "
+              f"{sb:.4f} by {sby}; var_mean {stats_lib:.4f}; plain {coef_plain:.4f}); "
+              f"(mean, var) alone {stats_ms:.4f} ms; apply+gelu {apply_ms:.4f} ms "
+              f"(plain {apply_plain:.4f}, bound {ab:.4f}); whole GroupNorm+FiLM+GELU "
+              f"{full_ms:.4f} ms vs F.group_norm+F.gelu (no FiLM) {full_lib:.4f} ms")
+        print(f"groupnorm eager {[n, c, t]} {str(dtype)[6:]} (back-to-back calls, host "
+              f"dispatch included): statistics + FiLM fold {coef_eager:.4f} ms per call, "
+              f"{coef_host:.1f} us of host; var_mean {lib_eager:.4f} ms, {lib_host:.1f} us")
+        if dtype == torch.float32:
+            entries = [
+                dict(name="group_norm_stats", route="cuda", design="PR 3",
+                     source="vq_voice_swap_torch/csrc/group_norm_stats.cu",
+                     replaces="vq_voice_swap_tpu/ops/fused_norm.py:84",
+                     launches=0, max_abs_err=err_stats, ms=coef_ms, plain_ms=coef_plain,
+                     bound_ms=sb, bound_by=sby, library_ms=stats_lib),
+                dict(name="group_norm_apply", route="triton", design="PR 1",
+                     source="vq_voice_swap_torch/ops/group_norm.py",
+                     replaces="vq_voice_swap_tpu/ops/fused_norm.py:191",
+                     launches=0, max_abs_err=err_apply, ms=apply_ms, plain_ms=apply_plain,
+                     bound_ms=ab, bound_by=aby, library_ms=None),
+            ]
+        del x
+    return entries
 
 
 def _vq_pick_gap(d, x, got, want):
@@ -222,17 +247,23 @@ def check_vq(dev, gen):
     c, d = 1024, 512
     dictionary = torch.randn(d, c, generator=gen, device=dev)
     err = 0.0
-    for b in (BATCH * 200, BATCH * 200 + 1):
+    for b in (1, 200, BATCH * 200, BATCH * 200 + 1):
         x = torch.randn(b, c, generator=gen, device=dev)
         idx, used = vqa.vq_assign(dictionary, x)
+        idx2, used2 = vqa.vq_assign(dictionary, x)
         pidx, pused = vqa.vq_assign_plain(dictionary, x)
         torch.cuda.synchronize()
         gap, rel = _vq_pick_gap(dictionary, x, idx, pidx)
         differ = int((idx != pidx).sum().item())
+        mask = torch.zeros_like(used)
+        mask[idx.long()] = 1
+        same_bits = torch.equal(idx, idx2) and torch.equal(used, used2)
         print(f"vq B={b}: {differ} indices differ from plain, largest gap "
-              f"{gap:.3g} ({rel:.3g} relative)")
+              f"{gap:.3g} ({rel:.3g} relative), same bits twice {same_bits}")
         assert rel <= 1e-6, "VQ indices differ beyond a true tie"
+        assert torch.equal(used, mask), "VQ used mask is not the picked codes"
         assert differ or torch.equal(used, pused), "VQ used masks differ"
+        assert same_bits, "VQ differs between two calls"
         err = max(err, gap)
 
     tied = dictionary.clone()
@@ -245,21 +276,45 @@ def check_vq(dev, gen):
     assert idx.tolist() == pidx.tolist() == [7, 7, 7, 42, 7]
     assert torch.equal(used, pused)
 
-    b = BATCH * 200
-    x = torch.randn(b, c, generator=gen, device=dev)
-    ms = cuda_ms(lambda: vqa.vq_assign(dictionary, x), 50)
-    plain = cuda_ms(lambda: vqa.vq_assign_plain(dictionary, x), 50)
     dn = torch.sum(dictionary * dictionary, dim=-1)
-    lib = cuda_ms(
-        lambda: torch.argmin(torch.addmm(dn, x, dictionary.t(), alpha=-2.0), dim=1), 50
-    )
-    bnd, by = bound_ms(4 * (b * c + d * c + d + b + d), 2.0 * b * c * d)
-    print(f"vq timing B={b} C={c} D={d}: kernel {ms:.4f} ms (plain {plain:.4f}, "
-          f"addmm+argmin {lib:.4f}, bound {bnd:.4f} by {by})")
-    return dict(name="vq_assign", route="cuda", source="vq_voice_swap_torch/csrc/vq_assign.cu",
-                replaces="vq_voice_swap_tpu/ops/vq_pallas.py:88", launches=0,
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib)
+    entry = None
+    for b in (BATCH * 200, 200):  # the serving batch, then the CLI's batch 1
+        x = torch.randn(b, c, generator=gen, device=dev)
+        ms = cuda_ms(lambda: vqa.vq_assign(dictionary, x), 50)
+        plain = cuda_ms(lambda: vqa.vq_assign_plain(dictionary, x), 50)
+        lib = cuda_ms(
+            lambda: torch.argmin(torch.addmm(dn, x, dictionary.t(), alpha=-2.0), dim=1), 50
+        )
+        eager, host = eager_ms(lambda: vqa.vq_assign(dictionary, x), 50)
+        lib_eager, lib_host = eager_ms(
+            lambda: torch.argmin(torch.addmm(dn, x, dictionary.t(), alpha=-2.0), dim=1), 50
+        )
+        # x and the codebook read, idx and used written; the product as the
+        # kernel runs it, three TF32 products on the dense tensor cores
+        # (3xTF32), the card's fastest float32-accurate route.
+        bnd, by = bound_ms(4 * (b * c + d * c + b + d), 3 * 2.0 * b * c * d, TF32_FLOP_PER_S)
+        cuda_core = 2.0 * b * c * d / F32_FLOP_PER_S * 1e3
+        print(f"vq timing B={b} C={c} D={d}: kernel {ms:.4f} ms, one launch "
+              f"({100 * bnd / ms:.1f}% of its bound {bnd:.4f} by {by}, 3xTF32; addmm+argmin "
+              f"{lib:.4f}, plain {plain:.4f}; for reference, the float32 product on the "
+              f"CUDA cores would take {cuda_core:.4f}); eager (back-to-back calls, host "
+              f"dispatch included): kernel {eager:.4f} ms, {host:.1f} us of host; "
+              f"addmm+argmin {lib_eager:.4f} ms, {lib_host:.1f} us")
+        if entry is None:
+            entry = dict(name="vq_assign", route="cuda", design="PR 3",
+                         source="vq_voice_swap_torch/csrc/vq_assign.cu",
+                         replaces="vq_voice_swap_tpu/ops/vq_pallas.py:88", launches=0,
+                         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                         bound_by=by, library_ms=lib)
+    return entry
+
+
+def check_tickets(after: str) -> None:
+    """Every launch that took a ticket has reset it."""
+    torch.cuda.synchronize()
+    bufs = ticket_buffers()
+    assert bufs and not any(buf.any().item() for buf in bufs), after
+    print(f"ticket counters after {after}: {len(bufs)} buffers (one per stream), all 0")
 
 
 def seeded_block(cin: int, cout: int, film: bool, dilation: int, seed: int, dev):
@@ -329,7 +384,7 @@ def check_fused_resblock(dev, gen):
         emb = torch.randn(n, EMB, generator=gen, device=dev).to(dtype)
         with torch.no_grad():
             xs = (x,)
-            norm1 = frb._norm_in_affine(block, xs, gn.group_norm_stats)
+            norm1 = frb._norm_in_affine(block, xs, gn.group_norm_coeffs)
             conv_in = frb._conv_weight(block.conv_in, dtype)
             conv_out = frb._conv_weight(block.conv_out, dtype)
             part = frb.fused_resblock_stats(xs, norm1, conv_in)
@@ -356,8 +411,9 @@ def check_fused_resblock(dev, gen):
               f"plain version {plain_ms:.4f} ms; reference only: the port's unfused "
               f"ResBlock {unfused_ms:.4f} ms; library: none computes a ResBlock)")
         if dtype == torch.float32:
-            common = dict(route="cuda", source="vq_voice_swap_torch/csrc/fused_resblock.cu",
-                          launches=0, max_abs_err=err, plain_ms=plain_ms, library_ms=None)
+            common = dict(route="cuda", design="PR 2",
+                          source="vq_voice_swap_torch/csrc/fused_resblock.cu", launches=0,
+                          max_abs_err=err, plain_ms=plain_ms, library_ms=None)
             entries = [
                 dict(name="fused_resblock_stats", replaces="attic/fused_resblock.py:151",
                      ms=stats_ms, bound_ms=sb, bound_by=sby, **common),
@@ -410,8 +466,10 @@ def write_wav(path: str, samples: np.ndarray) -> None:
         w.writeframes((np.clip(samples, -1, 1) * (2**15 - 1)).astype("<i2").tobytes())
 
 
-COUNTED = (vqa.vq_assign, gn.group_norm_stats, gn.group_norm_apply,
+# Each kernel's wrappers; the statistics kernel has two entry points.
+COUNTED = (vqa.vq_assign, gn.group_norm_coeffs, gn.group_norm_stats, gn.group_norm_apply,
            frb.fused_resblock_stats, frb.fused_resblock_apply)
+KERNEL_WRAPPERS = {"group_norm_stats": ("group_norm_coeffs", "group_norm_stats")}
 
 
 def reset_counts():
@@ -462,8 +520,10 @@ def main_path(dev, workdir: str, clips: np.ndarray):
               f"{frames} samples, peak {np.abs(data).max()}, launches {counts}")
         assert frames == SAMPLES and np.abs(data).max() > 0
         assert counts["vq_assign"] == encodes
+        # Every GroupNorm is one statistics launch (coefficients) and one apply.
         assert counts["group_norm_apply"] == GN_PER_PREDICTOR * steps
-        assert counts["group_norm_stats"] == GN_PER_PREDICTOR * steps
+        assert counts["group_norm_coeffs"] == GN_PER_PREDICTOR * steps
+        assert counts["group_norm_stats"] == 0
         assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == 0
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
@@ -505,12 +565,13 @@ def sampling_path(dev, workdir: str):
     assert min(peaks) > 0
     fused = FUSED_PER_PREDICTOR * steps
     assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == fused
-    # GroupNorm-1 statistics of each fused block stay on the Triton kernel
-    # (one call per input); both GroupNorms of a fused block leave the
-    # unfused path.
+    # GroupNorm-1 of each fused block runs the statistics kernel to its
+    # coefficients (one launch per input); both GroupNorms of a fused block
+    # leave the unfused path's apply.
     unfused_gn = (GN_PER_PREDICTOR - 2 * FUSED_PER_PREDICTOR) * steps
     assert counts["group_norm_apply"] == unfused_gn
-    assert counts["group_norm_stats"] == unfused_gn + fused + TWO_INPUT_PER_PREDICTOR * steps
+    assert counts["group_norm_coeffs"] == unfused_gn + fused + TWO_INPUT_PER_PREDICTOR * steps
+    assert counts["group_norm_stats"] == 0
     assert counts["vq_assign"] == 0
 
     # One full-width predictor call, fuse_levels=2 against 0, same input.
@@ -593,10 +654,12 @@ def _kernel_class(name: str) -> str:
         return "fused resblock stats (CUDA)"
     if "resblock_apply_kernel" in name:
         return "fused resblock apply (CUDA)"
-    if name.startswith("stats_kernel"):
-        return "groupnorm stats (Triton)"
+    if "group_norm_stats_kernel" in name:
+        return "groupnorm stats + fold (CUDA)"
     if name.startswith("apply_kernel"):
         return "groupnorm apply (Triton)"
+    if "vq_assign_kernel" in name:
+        return "vq assign (CUDA)"
     lowered = name.lower()
     if any(k in lowered for k in ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad")):
         return "convolution / matmul (cuDNN, cuBLAS)"
@@ -612,13 +675,15 @@ def profile_predictor(model: VQVAE, dev, name: str) -> None:
     cond = torch.randn(BATCH, SAMPLES // 320, model.cond_channels,
                        generator=gen, device=dev)
     labels = torch.arange(BATCH, device=dev)
-    profile_call(lambda: model.predict_eps(x, ts, cond, labels), name)
+    launches = profile_call(lambda: model.predict_eps(x, ts, cond, labels), name)
+    print(f"  swap predictor call {name}: {launches} kernel launches (target: < 2000)")
     group_norm_glue(model, dev, name)
 
 
-def profile_call(fn, name: str) -> None:
+def profile_call(fn, name: str) -> int:
     """Device time by kernel class for one warm call of fn (a predictor
-    call at BATCH), and the device's busy share of its wall time."""
+    call at BATCH), and the device's busy share of its wall time. Returns
+    the call's kernel launches."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -631,19 +696,21 @@ def profile_call(fn, name: str) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = _device_kernels(prof)
     total = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
     by_class = {}
     for e in kernels:
         cls = _kernel_class(e.key)
         by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
     print(f"profile {name} predictor call, batch {BATCH}: wall {wall_ms:.3f} ms, "
           f"device busy {total:.3f} ms ({100 * total / wall_ms:.1f}%), "
-          f"{sum(e.count for e in kernels)} kernel launches")
+          f"{launches} kernel launches")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls}: {ms:.3f} ms ({100 * ms / max(total, 1e-9):.1f}%)")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         print(f"  top kernel {e.self_device_time_total / 1e3:.3f} ms x{e.count} "
               f"{e.key[:100]}")
+    return launches
 
 
 def _device_kernels(prof):
@@ -652,48 +719,66 @@ def _device_kernels(prof):
 
 
 def group_norm_glue(model: VQVAE, dev, name: str) -> None:
-    """What the torch ops around the two GroupNorm kernels (the chunk
-    merge and the [N, C] affine/FiLM fold) add to one predictor call: their
-    device launches and device time, counted by torch.profiler on one
-    GroupNorm without and one with FiLM at the flagship's widest shape, and
-    their host dispatch time, each scaled by how many of each the
-    predictor runs."""
+    """The torch ops left around the GroupNorm kernels. On the unfused path
+    there are none: one GroupNorm, with or without FiLM, is exactly one
+    statistics launch and one apply launch (asserted from torch.profiler).
+    What is left is the fused ResBlock's GroupNorm-2 merge and affine/FiLM
+    fold: its device launches and device time, counted by torch.profiler on
+    one call for the largest fused block, and its host dispatch time, each
+    scaled by the fused blocks of one predictor call at fuse_levels=2."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vq_voice_swap_torch.models.layers import GroupNorm, ResBlock
+    from vq_voice_swap_torch.models.layers import GroupNorm
 
     n_norms = sum(isinstance(m, GroupNorm) for m in model.predictor.modules())
-    n_film = sum(isinstance(m, ResBlock) and m.cond_proj is not None
-                 for m in model.predictor.modules())
     assert n_norms == GN_PER_PREDICTOR, n_norms
     dtype = torch.bfloat16 if name == "bfloat16" else torch.float32
     n, c, groups = BATCH, 64, 32
     x = torch.randn(n, c, SAMPLES, device=dev).to(dtype)
     w, b = torch.ones(c, device=dev), torch.zeros(c, device=dev)
-    film = tuple(torch.randn(n, c, device=dev).to(dtype) for _ in range(2))
-    partials = torch.rand(3, n * groups, math.ceil(c // groups * SAMPLES / gn.STATS_CHUNK),
-                          device=dev)
-    launches = device_ms = host_ms = 0.0
-    for f, count in ((None, n_norms - n_film), (film, n_film)):
+    film = torch.randn(n, 2 * c, device=dev).to(dtype).chunk(2, dim=-1)
+    for f in (None, film):
         gn.group_norm(x, w, b, groups, 1e-5, True, f)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             gn.group_norm(x, w, b, groups, 1e-5, True, f)
             torch.cuda.synchronize()
-        glue = [e for e in _device_kernels(prof)
-                if not e.key.startswith(("stats_kernel", "apply_kernel"))]
-        launches += count * sum(e.count for e in glue)
-        device_ms += count * sum(e.self_device_time_total for e in glue) / 1e3
+        names = sorted(_kernel_class(e.key) for e in _device_kernels(prof)
+                       for _ in range(e.count))
+        assert names == ["groupnorm apply (Triton)", "groupnorm stats + fold (CUDA)"], names
+    print(f"  unfused GroupNorm {name}, with and without FiLM: 2 launches "
+          f"(statistics + fold, apply), no torch op between them")
+
+    block = seeded_block(c, c, True, 2, 98, dev)
+    emb = torch.randn(n, EMB, device=dev).to(dtype)
+    norm = block.norm_mid.norm
+    with torch.no_grad():
+        norm1 = frb._norm_in_affine(block, (x,), gn.group_norm_coeffs)
+        part = frb.fused_resblock_stats((x,), norm1, frb._conv_weight(block.conv_in, dtype))
+        f2 = frb._film(block, emb)
+
+        def merge_and_fold():
+            mean2, var2 = gn.merge_partials(*part.view(3, n * groups, -1))
+            return gn.fold_affine(mean2.view(n, -1), var2.view(n, -1), norm.weight,
+                                  norm.bias, norm.eps, f2)
+
+        merge_and_fold()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            merge_and_fold()
+            torch.cuda.synchronize()
+        glue = _device_kernels(prof)
         t0 = time.perf_counter()
         for _ in range(100):
-            mean, var = gn.merge_partials(partials[0], partials[1], partials[2])
-            gn.fold_affine(mean.view(n, groups), var.view(n, groups), w, b, 1e-5, f)
-        host_ms += count * (time.perf_counter() - t0) * 1e3 / 100
+            merge_and_fold()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 100
         torch.cuda.synchronize()
-    print(f"  groupnorm glue ({n_norms} GroupNorms, {n_film} with FiLM) per "
-          f"predictor call: {launches:.0f} kernel launches, device {device_ms:.3f} ms, "
-          f"host dispatch {host_ms:.3f} ms")
+    per = FUSED_PER_PREDICTOR
+    print(f"  fused-block GroupNorm-2 merge + fold {name} ({per} fused blocks per "
+          f"predictor call at fuse_levels={FUSE_LEVELS}): "
+          f"{per * sum(e.count for e in glue)} kernel launches, device "
+          f"{per * sum(e.self_device_time_total for e in glue) / 1e3:.3f} ms, host dispatch "
+          f"{per * host_ms:.3f} ms")
 
 
 def sampling_serving_time(dev, ckpt: str, smi: str):
@@ -769,6 +854,7 @@ def main() -> int:
     kernels = check_group_norm(dev, gen) + [check_vq(dev, gen)]
     torch.cuda.empty_cache()
     kernels += check_fused_resblock(dev, gen)
+    check_tickets("the kernel checks")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for serving
     torch.cuda.empty_cache()
     print(f"phases 1-2: {time.perf_counter() - t_start:.1f} s")
@@ -781,10 +867,11 @@ def main() -> int:
         uncond_ckpt, sampling_launches = sampling_path(dev, workdir)
         for k in kernels:
             path = sampling_launches if k["name"].startswith("fused") else swap_launches
-            k["launches"] = path[k["name"]]
+            k["launches"] = sum(path[w] for w in KERNEL_WRAPPERS.get(k["name"], (k["name"],)))
         print(f"phase 3: {time.perf_counter() - t_start:.1f} s")
         serving_time(dev, ckpt, clips, smi)
         sampling_serving_time(dev, uncond_ckpt, smi)
+    check_tickets("the main paths and serving")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -133,11 +133,12 @@ def test_group_norm_extreme_mean_stays_finite():
 
 @pytest.mark.parametrize("offset", [0.0, 1000.0])
 def test_merge_partials_matches_float64(offset):
-    """The Chan merge that folds the stats kernel's chunk partials, held
-    against float64 on chunks of unequal size (a ragged last chunk)."""
+    """The Chan merge that folds chunk partials (the fused ResBlock's
+    GroupNorm-2 tiles), held against float64 on chunks of unequal size (a
+    ragged last chunk)."""
     rng = np.random.RandomState(3)
     x = offset + rng.randn(5, 40000)
-    bounds = list(range(0, 40000, gn.STATS_CHUNK)) + [40000]
+    bounds = list(range(0, 40000, 16384)) + [40000]
     parts = [x[:, a:b] for a, b in zip(bounds[:-1], bounds[1:])]
     count = np.stack([np.full(5, p.shape[1]) for p in parts], 1)
     means = np.stack([p.mean(1) for p in parts], 1)
@@ -149,20 +150,82 @@ def test_merge_partials_matches_float64(offset):
     np.testing.assert_allclose(var.numpy(), x.var(1), rtol=1e-5)
 
 
-@pytest.mark.parametrize("bad", ["rank", "dtype", "layout"])
+@pytest.mark.parametrize("bad", ["rank", "dtype", "layout", "groups", "weight",
+                                 "film_shape", "film_stride", "out_shape"])
 def test_group_norm_wrappers_check_inputs(bad):
     x = torch.randn(2, 8, 16)
+    w, b = torch.ones(8), torch.zeros(8)
+    film, out = None, None
     if bad == "rank":
         x = x[0]
     elif bad == "dtype":
         x = x.double()
-    else:
+    elif bad == "layout":
         x = x.transpose(1, 2)
+    elif bad == "weight":
+        w = torch.ones(4)
+    elif bad == "film_shape":
+        film = (torch.zeros(2, 4), torch.zeros(2, 4))
+    elif bad == "film_stride":
+        ab = torch.zeros(2, 16)
+        film = (ab[:, 0::2], ab[:, 1::2])
+    elif bad == "out_shape":
+        out = torch.empty(3, 2, 4)
+    groups = 3 if bad == "groups" else 4
     with pytest.raises(ValueError):
-        gn.group_norm_stats(x, 4)
-    stats = torch.zeros(2, 8)
-    with pytest.raises(ValueError):
-        gn.group_norm_apply(x, stats, stats, stats, True)
+        gn.group_norm_coeffs(x, groups, w, b, 1e-5, film, out)
+    if bad in ("rank", "dtype", "layout", "groups"):
+        with pytest.raises(ValueError):
+            gn.group_norm_stats(x, groups)
+    if bad in ("rank", "dtype", "layout"):
+        stats = torch.zeros(2, 8)
+        with pytest.raises(ValueError):
+            gn.group_norm_apply(x, stats, stats, stats, True)
+
+
+@pytest.mark.parametrize("film", [False, True])
+def test_group_norm_coeffs_then_apply_match_jax(film):
+    """The statistics kernel's entry point (affine and FiLM folded in) and
+    the apply kernel's, against the JAX reference GroupNorm followed by the
+    ResBlock's FiLM h*(ca+1)+cb and exact GELU. FiLM comes in as the two
+    halves of one [N, 2C] projection, as the ResBlock passes it."""
+    rng = np.random.RandomState(9)
+    x = (rng.randn(2, 40, 48) * 1.5 + 0.3).astype(np.float32)
+    scale = (1.0 + 0.3 * rng.randn(48)).astype(np.float32)
+    bias = (0.3 * rng.randn(48)).astype(np.float32)
+    ab = (0.5 * rng.randn(2, 96)).astype(np.float32)
+    h = reference_group_norm(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), 16, 1e-5, False
+    )
+    pair = None
+    if film:
+        h = h * (jnp.asarray(ab[:, :48])[:, None] + 1.0) + jnp.asarray(ab[:, 48:])[:, None]
+        pair = torch.from_numpy(ab).chunk(2, dim=-1)
+    want = np.asarray(jax.nn.gelu(h, approximate=False))
+    xt = _nct(x)
+    coeffs = gn.group_norm_coeffs(
+        xt, 16, torch.from_numpy(scale), torch.from_numpy(bias), 1e-5, pair
+    )
+    assert all(v.shape == (2, 48) and v.dtype == torch.float32 for v in coeffs)
+    got = gn.group_norm_apply(xt, *coeffs, True)
+    np.testing.assert_allclose(_ntc(got), want, atol=1e-5, rtol=1e-5)
+
+
+def test_group_norm_coeffs_column_slices_equal_concat():
+    """Two inputs, each writing its column slice of one [3, N, Cin] buffer
+    from its share of the groups, weight and bias (the fused ResBlock's
+    GroupNorm-1 on a skip concat), give the coefficients of the concat."""
+    rng = np.random.RandomState(10)
+    x1 = torch.from_numpy(rng.randn(3, 24, 20).astype(np.float32))
+    x2 = torch.from_numpy((2.0 + rng.randn(3, 40, 20)).astype(np.float32))
+    w = torch.from_numpy((1.0 + 0.3 * rng.randn(64)).astype(np.float32))
+    b = torch.from_numpy((0.3 * rng.randn(64)).astype(np.float32))
+    out = torch.full((3, 3, 64), float("nan"))
+    gn.group_norm_coeffs(x1, 3, w[:24], b[:24], 1e-5, out=out[:, :, :24])
+    gn.group_norm_coeffs(x2, 5, w[24:], b[24:], 1e-5, out=out[:, :, 24:])
+    want = gn.group_norm_coeffs(torch.cat([x1, x2], dim=1), 8, w, b, 1e-5)
+    for got_v, want_v in zip(out, want):
+        np.testing.assert_allclose(got_v.numpy(), want_v.numpy(), atol=1e-6, rtol=1e-6)
 
 
 def test_group_norm_bf16_output_dtype():
@@ -236,18 +299,59 @@ def test_vq_forward_and_distances_match_jax():
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-6)
 
 
-@pytest.mark.parametrize("bad", ["shape", "dtype", "layout"])
+def _tf32(v: torch.Tensor, round_half_away: bool) -> torch.Tensor:
+    """Float32 cut to TF32's 10 explicit mantissa bits: rounded to nearest,
+    half away from zero (the kernel's head, as cvt.rna.tf32.f32 rounds), or
+    truncated (the kernel's tail, whose low 13 bits the tensor cores
+    ignore)."""
+    bits = v.view(torch.int32)
+    if round_half_away:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def test_vq_3xtf32_split_stays_within_tie_criterion():
+    """The CUDA kernel's arithmetic, emulated: x.d as x_lo.d_hi + x_hi.d_lo +
+    x_hi.d_hi of TF32 heads and tails, float32 accumulation. At the swap
+    path's shape its picks stay within the 1e-6 relative tie criterion of
+    the float64 argmin; one TF32 product (heads only) does not, which is why
+    the kernel splits."""
+    rng = np.random.RandomState(11)
+    d = torch.from_numpy(rng.randn(512, 1024).astype(np.float32))
+    x = torch.from_numpy(rng.randn(3200, 1024).astype(np.float32))
+    dh, xh = _tf32(d, True), _tf32(x, True)
+    dl, xl = _tf32(d - dh, False), _tf32(x - xh, False)
+    # The tail carries what the head drops, to ~2^-21 of the value.
+    assert ((d - dh - dl).abs() <= 2.0 ** -20 * d.abs()).all()
+    norms = torch.sum(d * d, dim=-1)
+    d64, x64 = d.double(), x.double()
+    dist64 = ((d64 * d64).sum(-1)[None] - 2.0 * (x64 @ d64.t())
+              + (x64 * x64).sum(-1)[:, None])
+    best = dist64.min(dim=-1).values
+
+    def worst_gap(dots):
+        pick = torch.argmin(norms[None] - 2.0 * dots, dim=-1)
+        return ((dist64.gather(1, pick[:, None])[:, 0] - best) / best).max().item()
+
+    assert worst_gap(xl @ dh.t() + xh @ dl.t() + xh @ dh.t()) <= 1e-6
+    assert worst_gap(xh @ dh.t()) > 1e-6
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "layout", "block_codes"])
 def test_vq_assign_checks_inputs(bad):
     d = torch.randn(16, 8)
     x = torch.randn(10, 8)
+    block_codes = None
     if bad == "shape":
         x = torch.randn(10, 7)
     elif bad == "dtype":
         x = x.double()
-    else:
+    elif bad == "layout":
         x = torch.randn(8, 10).t()
+    else:
+        block_codes = 48
     with pytest.raises(ValueError):
-        vqa.vq_assign(d, x)
+        vqa.vq_assign(d, x, block_codes)
 
 
 # --------------------------------------------------------------------- MFCC

@@ -19,10 +19,11 @@ intermediate (g, h1, z) on chip and streams input channels through shared
 memory (``csrc/fused_resblock.cu``, whose header has the details); its
 products are float32 FMAs on the CUDA cores, right before fast.
 
-Outside the kernels, as in the TPU wrapper: GroupNorm-1 statistics (the
-port's ``group_norm_stats`` kernel, one call per input), their fold into a
-per-channel affine, the FiLM ``gelu(emb) @ cond_proj`` exactly as the
-unfused block computes it, and the merge of the GroupNorm-2 partials.
+Outside the kernels, as in the TPU wrapper: GroupNorm-1's per-channel
+affine (the port's ``group_norm_coeffs`` kernel, one launch per input, each
+writing its column slice of one [3, N, Cin] buffer), the FiLM
+``gelu(emb) @ cond_proj`` exactly as the unfused block computes it, and the
+merge and fold of the GroupNorm-2 partials.
 Two inputs run the block on their channel concat without materialising
 it, when the concat boundary falls on a GroupNorm-1 group edge.
 
@@ -44,7 +45,8 @@ from .cuda_build import load_library
 from .group_norm import (
     fold_affine,
     group_norm_apply_plain,
-    group_norm_stats,
+    group_norm_coeffs,
+    group_norm_coeffs_plain,
     group_stats_plain,
     merge_partials,
 )
@@ -112,15 +114,20 @@ def _inputs(block, x: torch.Tensor, emb, x2) -> Tuple[torch.Tensor, ...]:
     return xs
 
 
-def _norm_in_affine(block, xs: Sequence[torch.Tensor], stats) -> Tuple[torch.Tensor, ...]:
-    """GroupNorm-1 folded to float32 (mean, a, b) [N, Cin]; with two inputs,
-    each half's statistics over its share of the groups."""
+def _norm_in_affine(block, xs: Sequence[torch.Tensor], coeffs) -> Tuple[torch.Tensor, ...]:
+    """GroupNorm-1 folded to float32 (mean, a, b) [N, Cin] by ``coeffs``
+    (``group_norm_coeffs`` or its plain version); with two inputs, each
+    writes its column slice from its share of the groups and of the affine."""
     norm = block.norm_in.norm
     cin = sum(xi.shape[1] for xi in xs)
-    parts = [stats(xi, norm.num_groups * xi.shape[1] // cin) for xi in xs]
-    mean = torch.cat([m for m, _ in parts], dim=1)
-    var = torch.cat([v for _, v in parts], dim=1)
-    return fold_affine(mean, var, norm.weight, norm.bias, norm.eps)
+    out = torch.empty((3, xs[0].shape[0], cin), dtype=torch.float32, device=xs[0].device)
+    c0 = 0
+    for xi in xs:
+        c1 = c0 + xi.shape[1]
+        coeffs(xi, norm.num_groups * xi.shape[1] // cin, norm.weight[c0:c1],
+               norm.bias[c0:c1], norm.eps, out=out[:, :, c0:c1])
+        c0 = c1
+    return tuple(out)
 
 
 def _norm_mid_affine(block, part: torch.Tensor, emb) -> Tuple[torch.Tensor, ...]:
@@ -164,7 +171,7 @@ def fused_resblock_plain(
     output rounded once). [N, Cin, T] -> [N, Cout, T] in x's dtype."""
     xs = _inputs(block, x, emb, x2)
     dtype = x.dtype
-    mean1, a1, b1 = _norm_in_affine(block, xs, group_stats_plain)
+    mean1, a1, b1 = _norm_in_affine(block, xs, group_norm_coeffs_plain)
     xc = torch.cat(xs, dim=1) if len(xs) > 1 else x
     g = group_norm_apply_plain(xc, mean1, a1, b1, True)
 
@@ -281,7 +288,7 @@ def fused_resblock(
     if x.device.type == "cpu":
         return fused_resblock_plain(block, x, emb, x2)
     dtype = x.dtype
-    norm1 = _norm_in_affine(block, xs, group_norm_stats)
+    norm1 = _norm_in_affine(block, xs, group_norm_coeffs)
     conv_in = _conv_weight(block.conv_in, dtype)
     part = fused_resblock_stats(xs, norm1, conv_in)
 

@@ -1,36 +1,47 @@
-"""GroupNorm (+ optional FiLM and exact GELU) over [N, C, T]: two
-hand-written Triton kernels and their plain PyTorch versions.
+"""GroupNorm (+ optional FiLM and exact GELU) over [N, C, T]: a hand-written
+CUDA statistics kernel, a Triton apply kernel, and their plain PyTorch
+versions.
 
 Counterpart of ``vq_voice_swap_tpu/ops/fused_norm.py``:
 
-- ``group_norm_stats`` replaces ``_stats_kernel`` (fused_norm.py:84). Each
-  (n, group) of a contiguous [N, C, T] tensor is one contiguous span of
-  C/G*T elements. A program reads one chunk of a span once and writes its
-  float32 (count, mean, M2) partial; per-lane Welford updates and a Chan
-  merge across lanes keep it free of the one-pass E[x^2] - mean^2
-  cancellation. The chunk partials merge in torch (tiny [N*G, S] ops), with
-  no atomics, so the result is the same from run to run.
-- ``group_norm_apply`` replaces ``_apply_kernel`` (fused_norm.py:115):
+- ``group_norm_coeffs`` replaces ``_stats_kernel`` (fused_norm.py:84)
+  together with what follows it there, ``_finish_from_channel_stats`` up to
+  the folded affine (fused_norm.py:166-184). One launch of
+  ``csrc/group_norm_stats.cu`` (its header has the design) reads x once and
+  writes the float32 per-channel (mean, a, b) [N, C] of ``fold_affine``:
+  two-pass float32 statistics, so large-mean inputs keep their variance,
+  with the affine and an optional FiLM h*(ca+1)+cb folded in by the
+  kernel's last block. ``group_norm_stats`` runs the same kernel without
+  the fold, to the group (mean, var).
+- ``group_norm_apply`` is the counterpart of the normalise + GELU pass
+  that the JAX package leaves to XLA (fused_norm.py:191-193; the Pallas
+  ``_apply_kernel`` at fused_norm.py:115 is reached by no ``pallas_call``):
   y = (x - mean) * a + b per (n, channel) row, then optional exact-erf GELU,
   stored in x's dtype. Subtracting the mean first (rather than folding it
-  into b) keeps large-mean inputs accurate. A FiLM h*(ca+1)+cb folds into
-  a and b on the [N, C] side (``fold_affine``), so one apply covers
-  norm_in, norm_mid and out_norm.
+  into b) keeps large-mean inputs accurate.
 
-Both are memory-bound streaming passes: the bound is x read once (stats),
-and x read once plus y written once (apply), at the card's memory rate.
-Wrappers use the plain versions for CPU tensors and launch the kernels for
-CUDA tensors, with no fallback between them; each counts its launches.
+So one GroupNorm, with or without FiLM, is two launches on the card and no
+torch op between them. Both kernels are memory-bound streaming passes: the
+bound is x read once (statistics), and x read once plus y written once
+(apply), at the card's memory rate. Wrappers use the plain versions for
+CPU tensors and launch the kernels for CUDA tensors, with no fallback
+between them; each counts its launches.
 """
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .cuda_build import load_library
+from .tickets import tickets
+
 __all__ = [
     "group_norm",
+    "group_norm_coeffs",
+    "group_norm_coeffs_plain",
     "group_norm_stats",
     "group_norm_apply",
     "group_stats_plain",
@@ -39,11 +50,19 @@ __all__ = [
     "fold_affine",
 ]
 
-STATS_BLOCK = 1024  # lanes of one statistics program
-STATS_CHUNK = 16 * STATS_BLOCK  # span elements one statistics program reads
 APPLY_BLOCK = 4096  # largest T-block of one apply program
+# The statistics kernel's pass over a span, its limit on slices per span
+# (csrc/group_norm_stats.cu reports both; _stats_library() checks them) and
+# its blocks resident on one SM (its __launch_bounds__).
+STATS_TILE = 256 * 32
+STATS_MAX_SLICES = 256
+STATS_BLOCKS_PER_SM = 4
+MAX_SPAN = 1 << 24  # float32 counts stay exact below this
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+Film = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _check_x(x: torch.Tensor) -> None:
@@ -55,6 +74,37 @@ def _check_x(x: torch.Tensor) -> None:
         raise ValueError("GroupNorm takes a contiguous [N, C, T] tensor")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"GroupNorm runs on CPU or CUDA, not {x.device}")
+
+
+def _check_groups(x: torch.Tensor, num_groups: int) -> None:
+    if num_groups < 1 or x.shape[1] % num_groups:
+        raise ValueError(f"{x.shape[1]} channels do not split into {num_groups} groups")
+
+
+def _check_coeffs(x, weight, bias, film: Film, out) -> None:
+    n, c, _ = x.shape
+    for name, v in (("weight", weight), ("bias", bias)):
+        if v.shape != (c,) or v.dtype not in _DTYPES or v.device != x.device:
+            raise ValueError(f"{name} must be [{c}] on {x.device}, got "
+                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    if film is not None:
+        ca, cb = film
+        if ca.shape != (n, c) or cb.shape != (n, c):
+            raise ValueError(f"FiLM (ca, cb) must be [{n}, {c}] each, got "
+                             f"{tuple(ca.shape)} and {tuple(cb.shape)}")
+        if ca.dtype not in _DTYPES or ca.dtype != cb.dtype:
+            raise ValueError(f"FiLM takes one float32 or bfloat16 dtype, got "
+                             f"{ca.dtype} and {cb.dtype}")
+        if ca.stride() != cb.stride() or ca.stride(1) != 1:
+            raise ValueError("FiLM (ca, cb) need unit channel stride and one row stride")
+        if ca.device != x.device or cb.device != x.device:
+            raise ValueError(f"FiLM must be on {x.device}")
+    if out is not None:
+        if (out.shape != (3, n, c) or out.dtype != torch.float32 or out.stride(2) != 1
+                or out.device != x.device):
+            raise ValueError(f"out must be float32 [3, {n}, {c}] with unit channel "
+                             f"stride on {x.device}, got {out.dtype} "
+                             f"{tuple(out.shape)} strides {out.stride()}")
 
 
 # ------------------------------------------------------------ plain versions
@@ -107,7 +157,7 @@ def fold_affine(
     weight: torch.Tensor,
     bias: torch.Tensor,
     eps: float,
-    film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    film: Film = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Group stats [N, G] + affine [C] (+ FiLM (ca, cb) [N, C]) -> float32
     per-channel (mean, a, b) [N, C] for ``group_norm_apply``, so that
@@ -124,43 +174,35 @@ def fold_affine(
     return mean_c.contiguous(), a.contiguous(), b.contiguous()
 
 
+def group_norm_coeffs_plain(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    film: Film = None,
+    out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``group_norm_coeffs`` in plain PyTorch: ``fold_affine`` of
+    ``group_stats_plain``, copied into ``out`` when given."""
+    coeffs = fold_affine(*group_stats_plain(x, num_groups), weight, bias, eps, film)
+    if out is None:
+        return coeffs
+    for dst, src in zip(out, coeffs):
+        dst.copy_(src)
+    return tuple(out)
+
+
 # ---------------------------------------------------------------- kernels
 
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    """Define the Triton kernels at first launch (triton is imported here,
-    never at module import: the CPU has no triton)."""
-    global tl  # the kernels resolve `tl` from this module's globals
+def _apply_kernel():
+    """Define the Triton apply kernel at first launch (triton is imported
+    here, never at module import: the CPU has no triton)."""
+    global tl  # the kernel resolves `tl` from this module's globals
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def stats_kernel(x_ptr, cnt_ptr, mean_ptr, m2_ptr, span, n_chunks,
-                     CHUNK: tl.constexpr, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        chunk = tl.program_id(1)
-        base = x_ptr + row.to(tl.int64) * span
-        lanes = chunk * CHUNK + tl.arange(0, BLOCK)
-        n = tl.zeros([BLOCK], tl.float32)
-        mu = tl.zeros([BLOCK], tl.float32)
-        m2 = tl.zeros([BLOCK], tl.float32)
-        for off in range(0, CHUNK, BLOCK):
-            idx = lanes + off
-            mask = idx < span
-            x = tl.load(base + idx, mask=mask, other=0.0).to(tl.float32)
-            n_new = n + mask.to(tl.float32)
-            delta = x - mu
-            mu = tl.where(mask, mu + delta / tl.maximum(n_new, 1.0), mu)
-            m2 = tl.where(mask, m2 + delta * (x - mu), m2)
-            n = n_new
-        total = tl.sum(n, axis=0)
-        mean = tl.sum(n * mu, axis=0) / tl.maximum(total, 1.0)
-        dev = mu - mean
-        out = row * n_chunks + chunk
-        tl.store(cnt_ptr + out, total)
-        tl.store(mean_ptr + out, mean)
-        tl.store(m2_ptr + out, tl.sum(m2 + n * dev * dev, axis=0))
 
     @triton.jit
     def apply_kernel(x_ptr, mean_ptr, a_ptr, b_ptr, y_ptr, T,
@@ -178,7 +220,95 @@ def _kernels():
             y = 0.5 * y * (1.0 + tl.math.erf(y * 0.7071067811865476))
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return triton, stats_kernel, apply_kernel
+    return triton, apply_kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _stats_library():
+    lib = load_library("group_norm_stats")
+    for fn, want in ((lib.group_norm_stats_tile, STATS_TILE),
+                     (lib.group_norm_stats_max_slices, STATS_MAX_SLICES)):
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"csrc/group_norm_stats.cu: {fn.__name__} is {fn()}, "
+                               f"the wrapper expects {want}")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.group_norm_stats.argtypes = (
+        [i, p, i, i, i, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, i, ll, p, p, p, ll, p]
+    )
+    lib.group_norm_stats.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _launch_stats(x, num_groups, out_mean, out_a, out_b, out_ld,
+                  weight=None, bias=None, eps=0.0, film: Film = None) -> None:
+    """One launch of the statistics kernel (see csrc/group_norm_stats.cu)."""
+    n, c, t = x.shape
+    spans, span = n * num_groups, (c // num_groups) * t
+    if span >= MAX_SPAN:
+        raise ValueError(f"GroupNorm group of {span} elements: the kernel takes "
+                         f"fewer than {MAX_SPAN}")
+    target = _sm_count(x.device) * STATS_BLOCKS_PER_SM
+    slices = max(1, min(target // max(spans, 1), -(-span // STATS_TILE), STATS_MAX_SLICES))
+    chunk = -(-span // slices)
+    chunk = -(-chunk // 8) * 8
+    # 16-byte loads need the span, and so every slice, to start 16-byte aligned.
+    vec = span % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
+    part = None
+    if slices > 1:
+        part = torch.empty(spans * slices * 3, dtype=torch.float32, device=x.device)
+    ca = cb = None
+    film_code, film_ld = 0, 0
+    if film is not None:
+        ca, cb = film
+        film_code, film_ld = _DTYPE_CODE[ca.dtype], ca.stride(0)
+    stream = torch.cuda.current_stream(x.device)
+    with torch.cuda.device(x.device):
+        err = _stats_library().group_norm_stats(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), n, c, t, num_groups, slices, chunk,
+            int(vec), _ptr(part), tickets(stream, spans).data_ptr(), _ptr(weight),
+            _ptr(bias), float(eps), _ptr(ca), _ptr(cb), film_code, film_ld,
+            out_mean.data_ptr(), out_a.data_ptr(), _ptr(out_b), out_ld, stream.cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"group_norm_stats kernel launch failed: CUDA error {err}")
+
+
+def group_norm_coeffs(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    film: Film = None,
+    out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Float32 per-channel (mean, a, b) [N, C] of GroupNorm over [N, C, T]
+    with affine ``weight``/``bias`` [C] and optional FiLM (ca, cb) [N, C]
+    folded in, as ``group_norm_apply`` takes them: one kernel launch on the
+    card. ``out``, a float32 [3, N, C] view with unit channel stride (e.g.
+    the column slice of a wider [3, N, Cin] buffer), receives them."""
+    _check_x(x)
+    _check_groups(x, num_groups)
+    _check_coeffs(x, weight, bias, film, out)
+    if x.device.type == "cpu":
+        return group_norm_coeffs_plain(x, num_groups, weight, bias, eps, film, out)
+    n, c, _ = x.shape
+    if out is None:
+        out = torch.empty((3, n, c), dtype=torch.float32, device=x.device)
+    _launch_stats(x, num_groups, out[0], out[1], out[2], out.stride(1),
+                  weight.float().contiguous(), bias.float().contiguous(), eps, film)
+    group_norm_coeffs.launches += 1
+    return out[0], out[1], out[2]
 
 
 def group_norm_stats(
@@ -186,23 +316,14 @@ def group_norm_stats(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Float32 group mean and biased variance of [N, C, T], [N, G] each."""
     _check_x(x)
-    n, c, t = x.shape
-    if c % num_groups:
-        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    _check_groups(x, num_groups)
     if x.device.type == "cpu":
         return group_stats_plain(x, num_groups)
-    triton, stats_kernel, _ = _kernels()
-    rows, span = n * num_groups, (c // num_groups) * t
-    n_chunks = triton.cdiv(span, STATS_CHUNK)
-    partials = torch.empty((3, rows, n_chunks), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stats_kernel[(rows, n_chunks)](
-            x, partials[0], partials[1], partials[2], span, n_chunks,
-            CHUNK=STATS_CHUNK, BLOCK=STATS_BLOCK, num_warps=4,
-        )
+    n = x.shape[0]
+    stats = torch.empty((2, n, num_groups), dtype=torch.float32, device=x.device)
+    _launch_stats(x, num_groups, stats[0], stats[1], None, num_groups)
     group_norm_stats.launches += 1
-    mean, var = merge_partials(partials[0], partials[1], partials[2])
-    return mean.view(n, num_groups), var.view(n, num_groups)
+    return stats[0], stats[1]
 
 
 def group_norm_apply(
@@ -225,7 +346,7 @@ def group_norm_apply(
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if x.device.type == "cpu":
         return group_norm_apply_plain(x, mean, a, b, use_gelu)
-    triton, _, apply_kernel = _kernels()
+    triton, apply_kernel = _apply_kernel()
     n, c, t = x.shape
     block = min(APPLY_BLOCK, triton.next_power_of_2(t))
     y = torch.empty_like(x)
@@ -237,6 +358,7 @@ def group_norm_apply(
     return y
 
 
+group_norm_coeffs.launches = 0
 group_norm_stats.launches = 0
 group_norm_apply.launches = 0
 
@@ -248,10 +370,9 @@ def group_norm(
     num_groups: int,
     eps: float,
     use_gelu: bool,
-    film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    film: Film = None,
 ) -> torch.Tensor:
     """GroupNorm over the channels of [N, C, T] with float32 statistics,
     then optional FiLM h*(ca+1)+cb and exact GELU; output in x's dtype."""
-    mean, var = group_norm_stats(x, num_groups)
-    mean_c, a, b = fold_affine(mean, var, weight, bias, eps, film)
+    mean_c, a, b = group_norm_coeffs(x, num_groups, weight, bias, eps, film)
     return group_norm_apply(x, mean_c, a, b, use_gelu)
