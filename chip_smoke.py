@@ -16,17 +16,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    assignment (CUDA, 3xTF32 tensor cores) at B=1, 200, 3200 and 3201,
    C=1024, D=512, twice for the same bits, and an exact-tie case (indices
    equal up to true ties at 1e-6 relative in float64, used masks equal);
-   the fused ResBlock pair (CUDA) at the unet64 top levels' shapes, two
-   inputs, no FiLM, dilations 1 and 4 and a ragged T, in f32 and bf16
-   (atol/rtol 2e-4 and 5e-2). Each kernel's device time (a replayed CUDA
-   graph of its calls, kernel_ab.cuda_ms) is printed beside its bound, its
-   plain version and a library call for the same work where one exists
-   (none computes a ResBlock; the port's unfused ResBlock is timed as a
-   labelled reference): GroupNorm statistics alone in f32 and bf16, VQ at
-   B=3200 and B=200. The statistics and VQ wrappers, and their library
-   calls, are also timed eagerly (back-to-back calls, host dispatch
-   included), with the host's time per call. Every ticket counter
-   (ops/tickets.py) is 0 after this phase and after the last.
+   the fused ResBlock pair (CUDA, tensor cores) at the unet64 top levels'
+   shapes, two inputs, no FiLM, dilations 1 and 4, a ragged T and 256 ->
+   256 channels at dilation 7, in f32 and bf16 (atol/rtol 2e-4 and 5e-2),
+   twice for the same bits; its bounds printed on the tensor cores (3xTF32
+   for f32) and on the f32 CUDA cores. Each kernel's device time (a
+   replayed CUDA graph of its calls, kernel_ab.cuda_ms) is printed beside
+   its bound, its plain version and a library call for the same work where
+   one exists (none computes a ResBlock; the port's unfused ResBlock is
+   timed as a labelled reference, cuDNN TF32 off and on): GroupNorm
+   statistics alone in f32 and bf16, VQ at B=3200 and B=200. The
+   statistics and VQ wrappers, and their library calls, are also timed
+   eagerly (back-to-back calls, host dispatch included), with the host's
+   time per call. Every ticket counter (ops/tickets.py) is 0 after this
+   phase and after the last.
 3. Main paths, each with every launch count set to 0 just before it and
    read just after. The swap: a full-width VQ-VAE (unet64 predictor,
    conv-mfcc-ulaw encoder, 512 x 1024 codebook, 251 labels) on seeded
@@ -59,7 +62,6 @@ result.
 """
 
 import json
-import math
 import os
 import subprocess
 import sys
@@ -73,7 +75,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from kernel_ab import cuda_ms, eager_ms  # noqa: E402
+from kernel_ab import cuda_ms, eager_ms, seed_weights  # noqa: E402
 from vq_voice_swap_torch import sample_diffusion, sample_vqvae  # noqa: E402
 from vq_voice_swap_torch.diffusion import make_warp  # noqa: E402
 from vq_voice_swap_torch.diffusion_model import DiffusionModel  # noqa: E402
@@ -349,6 +351,8 @@ def check_fused_resblock(dev, gen):
         ("64->64 no FiLM d1", 4, 64, 0, 64, SAMPLES // 4, 1, False),
         ("64->64 d4", 4, 64, 0, 64, SAMPLES // 4, 4, True),
         ("128->64 ragged T", 3, 128, 0, 64, 4001, 2, True),
+        # The largest shared-memory footprint: z for 256 channels, widest halo.
+        ("256->256 FiLM d7", 4, 256, 0, 256, SAMPLES // 4, 7, True),
     ]
     err = 0.0
     for i, (label, n, c1, c2, cout, t, dil, film) in enumerate(cases):
@@ -359,17 +363,20 @@ def check_fused_resblock(dev, gen):
             emb = torch.randn(n, EMB, generator=gen, device=dev).to(dtype) if film else None
             with torch.no_grad():
                 got = frb.fused_resblock(block, x, emb, x2)
+                again = frb.fused_resblock(block, x, emb, x2)
                 want = frb.fused_resblock_plain(block, x, emb, x2)
             torch.cuda.synchronize()
             e = pair_err(got, want, tol)
             abs_err = (got.float() - want.float()).abs().max().item()
+            same_bits = torch.equal(got, again)
             print(f"fused resblock {label} [{n}, {c1}+{c2}, {t}] -> {cout} "
                   f"{str(dtype)[6:]}: max |kernel - plain| {abs_err:.3g}, beyond "
-                  f"rtol {e:.3g} (atol/rtol {tol})")
+                  f"rtol {e:.3g} (atol/rtol {tol}), same bits twice {same_bits}")
             assert e <= tol, label
+            assert same_bits, label
             if dtype == torch.float32:
                 err = max(err, abs_err)
-            del got, want, x, x2
+            del got, again, want, x, x2
     torch.cuda.empty_cache()
 
     # Timing at the largest main-path block, [16, 64, 64000] 64 -> 64 with
@@ -379,7 +386,12 @@ def check_fused_resblock(dev, gen):
     entries = []
     for dtype in (torch.float32, torch.bfloat16):
         size = 4 if dtype == torch.float32 else 2
-        peak = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+        # The design's arithmetic: bf16 tensor cores, or three TF32 products
+        # per float32 product (3xTF32); the bound of a float32 design on the
+        # CUDA cores is printed beside it.
+        f32 = dtype == torch.float32
+        tc_peak = TF32_FLOP_PER_S / 3 if f32 else BF16_FLOP_PER_S
+        tc_name = "3xTF32 tensor cores" if f32 else "bf16 tensor cores"
         x = torch.randn(n, c, t, generator=gen, device=dev).to(dtype)
         emb = torch.randn(n, EMB, generator=gen, device=dev).to(dtype)
         with torch.no_grad():
@@ -395,23 +407,32 @@ def check_fused_resblock(dev, gen):
             pair_ms = cuda_ms(lambda: frb.fused_resblock(block, x, emb), 10)
             plain_ms = cuda_ms(lambda: frb.fused_resblock_plain(block, x, emb), 10)
             unfused_ms = cuda_ms(lambda: block(x, emb), 10)
+            torch.backends.cudnn.allow_tf32 = True
+            unfused_tf32_ms = cuda_ms(lambda: block(x, emb), 10)
+            torch.backends.cudnn.allow_tf32 = False
         x_bytes = x.numel() * size
         f_stats, f_apply = resblock_flops(n, t, c, c, False)
-        sb, sby = bound_ms(x_bytes + part.numel() * 4, f_stats, peak)
-        ab, aby = bound_ms(2 * x_bytes, f_apply, peak)
+        stats_bytes, apply_bytes = x_bytes + part.numel() * 4, 2 * x_bytes
+        sb, sby = bound_ms(stats_bytes, f_stats, tc_peak)
+        ab, aby = bound_ms(apply_bytes, f_apply, tc_peak)
+        sb_cc, _ = bound_ms(stats_bytes, f_stats, F32_FLOP_PER_S)
+        ab_cc, _ = bound_ms(apply_bytes, f_apply, F32_FLOP_PER_S)
         # The pair with the GroupNorm-1 statistics: x read 3 times, out written.
         pair_bytes, pair_flops = 4 * x_bytes, f_stats + f_apply
-        pb, pby = bound_ms(pair_bytes, pair_flops, peak)
+        pb, pby = bound_ms(pair_bytes, pair_flops, tc_peak)
         print(f"fused resblock timing [{n}, {c}, {t}] 64->64 FiLM d2 {str(dtype)[6:]}: "
-              f"stats {stats_ms:.4f} ms (bound {sb:.4f} by {sby}), apply {apply_ms:.4f} ms "
-              f"(bound {ab:.4f} by {aby}); whole block {pair_ms:.4f} ms (bound {pb:.4f} "
-              f"by {pby}: bytes {pair_bytes / 1e9:.3f} GB = "
-              f"{pair_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
-              f"{pair_flops / 1e9:.2f} GFLOP = {pair_flops / peak * 1e3:.4f} ms; "
-              f"plain version {plain_ms:.4f} ms; reference only: the port's unfused "
-              f"ResBlock {unfused_ms:.4f} ms; library: none computes a ResBlock)")
+              f"stats {stats_ms:.4f} ms (bound {sb:.4f} by {sby} on the {tc_name}; "
+              f"{sb_cc:.4f} on the f32 CUDA cores), apply {apply_ms:.4f} ms (bound "
+              f"{ab:.4f} by {aby} on the {tc_name}; {ab_cc:.4f} on the f32 CUDA cores); "
+              f"whole block {pair_ms:.4f} ms (bound {pb:.4f} by {pby}: bytes "
+              f"{pair_bytes / 1e9:.3f} GB = {pair_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+              f"operations {pair_flops / 1e9:.2f} GFLOP = "
+              f"{pair_flops / tc_peak * 1e3:.4f} ms; plain version {plain_ms:.4f} ms; "
+              f"reference only: the port's unfused ResBlock {unfused_ms:.4f} ms, "
+              f"{unfused_tf32_ms:.4f} ms with cuDNN TF32 on; library: none computes a "
+              f"ResBlock)")
         if dtype == torch.float32:
-            common = dict(route="cuda", design="PR 2",
+            common = dict(route="cuda", design="PR 5",
                           source="vq_voice_swap_torch/csrc/fused_resblock.cu", launches=0,
                           max_abs_err=err, plain_ms=plain_ms, library_ms=None)
             entries = [
@@ -425,25 +446,6 @@ def check_fused_resblock(dev, gen):
 
 
 # ------------------------------------------------------------------ phase 3
-
-
-def seed_weights(model: torch.nn.Module, seed: int) -> None:
-    """Seeded weights with every layer live: weights ~ N(0, 1/fan_in), the
-    ResBlock output convs (zero-init in training) at 0.3 of that, norms
-    near 1, small biases."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            noise = torch.randn(p.shape, generator=gen)
-            if name.endswith("dictionary"):
-                p.copy_(noise)
-            elif p.ndim >= 2:
-                scale = 0.3 if ".conv_out." in name else 1.0
-                p.copy_(noise * scale / math.sqrt(p[0].numel()))
-            elif name.endswith("norm.weight"):
-                p.copy_(1.0 + 0.1 * noise)
-            else:
-                p.copy_(0.1 * noise)
 
 
 def speech_like(seed: int, n: int) -> np.ndarray:

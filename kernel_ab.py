@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times of the PyTorch port's VQ-assign and GroupNorm-statistics entry
-points in one source tree, under two timers, so that two versions can be
-compared in one call on one card:
+"""Times of the PyTorch port's VQ-assign, GroupNorm-statistics and fused
+ResBlock entry points in one source tree, under two timers, so that two
+versions can be compared in one call on one card:
 
     python3 kernel_ab.py [TREE]    # TREE: the root of a checkout (default: here)
 
@@ -23,9 +23,16 @@ codebook (with each code tile the tree's kernel offers), against
 and bfloat16, against ``var_mean``: the group (mean, var), and the
 statistics folded with the affine and a FiLM into the apply kernel's
 (mean, a, b) (``group_norm_coeffs``, or in a tree without it,
-``fold_affine`` of ``group_norm_stats``). Exits non-zero without a card.
+``fold_affine`` of ``group_norm_stats``); the fused ResBlock pair at
+[16, 64, 64000], 64 -> 64 with FiLM, dilation 2, in float32 and bfloat16:
+``fused_resblock_stats``, ``fused_resblock_apply`` (called through the
+tree's own ``_norm_in_affine``, ``_conv_weight`` and ``_norm_mid_affine``)
+and the whole ``fused_resblock``, against the port's unfused ``ResBlock``
+with cuDNN's TF32 off and on (no one PyTorch call computes a ResBlock).
+Exits non-zero without a card.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -34,6 +41,7 @@ import time
 import torch
 
 ITERS = 50
+PAIR_ITERS = 10  # the pair's calls take ~1 ms and a [16, 64, 64000] output each
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -78,9 +86,65 @@ def eager_ms(fn, iters: int = ITERS):
     return start.elapsed_time(end) / iters, host_us
 
 
-def timings(fn) -> str:
-    ms, host_us = eager_ms(fn)
-    return f"device {cuda_ms(fn):.4f} ms, eager {ms:.4f} ms, host {host_us:.1f} us"
+def timings(fn, iters: int = ITERS) -> str:
+    ms, host_us = eager_ms(fn, iters)
+    return f"device {cuda_ms(fn, iters):.4f} ms, eager {ms:.4f} ms, host {host_us:.1f} us"
+
+
+def seed_weights(model: torch.nn.Module, seed: int) -> None:
+    """Seeded weights with every layer live: weights ~ N(0, 1/fan_in), the
+    ResBlock output convs (zero-init in training) at 0.3 of that, norms
+    near 1, small biases."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            noise = torch.randn(p.shape, generator=gen)
+            if name.endswith("dictionary"):
+                p.copy_(noise)
+            elif p.ndim >= 2:
+                scale = 0.3 if ".conv_out." in name else 1.0
+                p.copy_(noise * scale / math.sqrt(p[0].numel()))
+            elif name.endswith("norm.weight"):
+                p.copy_(1.0 + 0.1 * noise)
+            else:
+                p.copy_(0.1 * noise)
+
+
+def time_fused_resblock(label: str, dev, gen) -> None:
+    """The pair's entry points and the unfused block, per dtype."""
+    from vq_voice_swap_torch.models.layers import ResBlock
+    from vq_voice_swap_torch.ops import fused_resblock as frb
+    from vq_voice_swap_torch.ops import group_norm as gn
+
+    n, c, t, emb_ch = 16, 64, 64000, 256
+    block = ResBlock(c, c, emb_ch, dilation=2)
+    seed_weights(block, 99)  # the block chip_smoke.py times
+    block = block.to(dev).eval()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(n, c, t, generator=gen, device=dev).to(dtype)
+        emb = torch.randn(n, emb_ch, generator=gen, device=dev).to(dtype)
+        xs = (x,)
+        name = f"{label} fused resblock [{n}, {c}, {t}] 64->64 FiLM d2 {str(dtype)[6:]}"
+        with torch.no_grad():
+            norm1 = frb._norm_in_affine(block, xs, gn.group_norm_coeffs)
+            conv_in = frb._conv_weight(block.conv_in, dtype)
+            conv_out = frb._conv_weight(block.conv_out, dtype)
+            part = frb.fused_resblock_stats(xs, norm1, conv_in)
+            norm2 = frb._norm_mid_affine(block, part, emb)
+            print(f"{name} fused_resblock_stats: "
+                  f"{timings(lambda: frb.fused_resblock_stats(xs, norm1, conv_in), PAIR_ITERS)}")
+            print(f"{name} fused_resblock_apply: " + timings(
+                lambda: frb.fused_resblock_apply(xs, norm1, conv_in, norm2, conv_out,
+                                                 (None, None), 2), PAIR_ITERS))
+            print(f"{name} fused_resblock (whole block): "
+                  f"{timings(lambda: frb.fused_resblock(block, x, emb), PAIR_ITERS)}")
+            for tf32 in (False, True):
+                torch.backends.cudnn.allow_tf32 = tf32
+                print(f"{name} unfused ResBlock, cuDNN TF32 {'on' if tf32 else 'off'}: "
+                      f"{timings(lambda: block(x, emb), PAIR_ITERS)}")
+            torch.backends.cudnn.allow_tf32 = False
+        del x, part
+        torch.cuda.empty_cache()
 
 
 def main(argv) -> int:
@@ -89,10 +153,12 @@ def main(argv) -> int:
         return 1
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, tree)
+    from vq_voice_swap_torch.ops import cuda_build
     from vq_voice_swap_torch.ops import group_norm as gn
     from vq_voice_swap_torch.ops import vq_assign as vqa
 
     assert gn.__file__.startswith(tree + os.sep), (gn.__file__, tree)
+    cuda_build.build_all()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -100,6 +166,7 @@ def main(argv) -> int:
     label = os.path.basename(tree)
     print(f"kernel_ab {label} ({tree}) on {smi}, {ITERS} calls per timing")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -137,6 +204,7 @@ def main(argv) -> int:
                                                     bias, 1e-5, f))
         print(f"{name} statistics to (mean, a, b) with FiLM: {coeffs}")
         del x
+    time_fused_resblock(label, dev, gen)
     return 0
 
 

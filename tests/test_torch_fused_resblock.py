@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch_port_util import load_into, nct, ntc, randomize_params
 
 from vq_voice_swap_tpu.models.layers import ResBlock as JaxResBlock
@@ -137,6 +138,74 @@ def test_fused_resblock_rejects_what_the_kernels_do_not_compute():
         frb.fused_resblock(ResBlock(8, dilation=frb.MAX_DILATION + 1), x)
     with pytest.raises(ValueError, match="must be on"):
         frb.fused_resblock(block.to("meta"), torch.zeros(1, 12, 32))
+
+
+def _tf32(v: torch.Tensor, round_half_away: bool) -> torch.Tensor:
+    """Float32 cut to TF32's 10 explicit mantissa bits: rounded to nearest,
+    half away from zero (the kernels' head), or truncated (the tail, whose
+    low 13 bits the tensor cores ignore). As in tests/test_torch_ops.py."""
+    bits = v.view(torch.int32)
+    if round_half_away:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def test_fused_resblock_3xtf32_stays_within_card_tolerance(monkeypatch):
+    """The float32 kernels' arithmetic, emulated on the CPU: each of the
+    pair's three convolutions (conv_in, conv_out, the 1x1 skip) as
+    x_lo.w_hi + x_hi.w_lo + x_hi.w_hi of TF32 heads and tails, summed in
+    float32. The block's output stays within the card check's 2e-4
+    (atol and rtol) of fused_resblock_plain with its convolutions in
+    float64; heads alone (one TF32 product, cuDNN's TF32 mode) do not."""
+    real_conv1d = F.conv1d
+    modes = {}
+
+    def conv1d(inp, weight, bias=None, **kw):
+        mode = modes["mode"]
+        if mode == "f64":
+            return real_conv1d(inp.double(), weight.double(), bias.double(), **kw).float()
+        xh, wh = _tf32(inp, True), _tf32(weight, True)
+        if mode == "1xtf32":
+            return real_conv1d(xh, wh, bias, **kw)
+        xl, wl = _tf32(inp - xh, False), _tf32(weight - wh, False)
+        return (real_conv1d(xl, wh, None, **kw) + real_conv1d(xh, wl, None, **kw)
+                + real_conv1d(xh, wh, bias, **kw))
+
+    monkeypatch.setattr(frb.F, "conv1d", conv1d)
+    rng = np.random.RandomState(21)
+    block = ResBlock(48, 64, 24, dilation=3)  # skip projection: all three convolutions
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.from_numpy(0.3 * rng.randn(*p.shape).astype(np.float32)))
+    x = torch.from_numpy(rng.randn(2, 48, 300).astype(np.float32))
+    emb = torch.from_numpy(rng.randn(2, 24).astype(np.float32))
+    outs = {}
+    with torch.no_grad():
+        for mode in ("f64", "3xtf32", "1xtf32"):
+            modes["mode"] = mode
+            outs[mode] = frb.fused_resblock_plain(block, x, emb)
+    want = outs["f64"]
+    beyond = {m: ((outs[m] - want).abs() - 2e-4 * want.abs()).max().item()
+              for m in ("3xtf32", "1xtf32")}
+    assert beyond["3xtf32"] <= 2e-4 < beyond["1xtf32"], beyond
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_weight_layout_maps_back_to_conv1d(dtype):
+    """The kernels' weight operand [tap, Cout, Cin'] (Cin zero-padded to a
+    multiple of WEIGHT_ALIGN) holds exactly the rounded nn.Conv1d weights of
+    conv_in, conv_out and the skip projection."""
+    block = ResBlock(20, 40, None, dilation=2)  # Cin = 20 pads to 24
+    for layer, taps in ((block.conv_in, 3), (block.conv_out, 3), (block.skip_proj, 1)):
+        conv = layer.conv
+        cout, cin, _ = conv.weight.shape
+        w, b = frb._conv_weight(layer, dtype)
+        assert w.dtype == dtype and w.is_contiguous()
+        assert w.shape == (taps, cout, -(-cin // frb.WEIGHT_ALIGN) * frb.WEIGHT_ALIGN)
+        assert torch.equal(w[:, :, :cin].permute(1, 2, 0), conv.weight.detach().to(dtype))
+        assert not w[:, :, cin:].any()
+        assert b.dtype == torch.float32
+        assert torch.equal(b, conv.bias.detach().to(dtype).float())
 
 
 PROBE = dict(base_channels=4, channel_mult=(1, 2, 2), depth_mult=1,

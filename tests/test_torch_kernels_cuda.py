@@ -182,6 +182,19 @@ def test_ticket_counters_are_per_stream_and_left_zero(cuda_gen):
         assert not buf.any()
 
 
+def _fused_case(gen, dtype, c1, c2, cout, t, dilation, film):
+    """A ResBlock with random parameters on the card and its inputs."""
+    block = ResBlock(c1 + c2, cout, 24 if film else None, dilation=dilation)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(0.3 * torch.randn(p.shape, generator=gen, device="cuda"))
+    block = block.cuda().eval()
+    x = torch.randn(2, c1, t, generator=gen, device="cuda").to(dtype)
+    x2 = torch.randn(2, c2, t, generator=gen, device="cuda").to(dtype) if c2 else None
+    emb = torch.randn(2, 24, generator=gen, device="cuda").to(dtype) if film else None
+    return block, x, emb, x2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("c1,c2,cout,t,dilation,film", [
@@ -190,22 +203,16 @@ def test_ticket_counters_are_per_stream_and_left_zero(cuda_gen):
     (192, 0, 64, 333, 1, False),    # the 192-channel up block, no FiLM
     (32, 0, 48, 1000, 4, True),     # outputs not a multiple of 64
     (128, 0, 160, 130, 7, True),    # three output passes, widest halo
+    (256, 0, 256, 700, 7, True),    # the largest shared-memory footprint
+    (40, 0, 64, 300, 2, True),      # Cin not a multiple of the MMA depth
+    (64, 64, 64, 1001, 3, True),    # two inputs at a ragged, odd T
 ])
 def test_fused_resblock_matches_plain(cuda_gen, dtype, tol, c1, c2, cout, t,
                                       dilation, film):
     """The kernel pair against fused_resblock_plain on random parameters:
     |got - want| <= tol * (1 + |want|) (one bf16 rounding of h1 can flip
     and carry through GroupNorm-2 and conv_out)."""
-    block = ResBlock(c1 + c2, cout, 24 if film else None, dilation=dilation)
-    with torch.no_grad():
-        for p in block.parameters():
-            p.copy_(0.3 * torch.randn(p.shape, generator=cuda_gen, device="cuda"))
-    block = block.cuda().eval()
-    x = torch.randn(2, c1, t, generator=cuda_gen, device="cuda").to(dtype)
-    x2 = (torch.randn(2, c2, t, generator=cuda_gen, device="cuda").to(dtype)
-          if c2 else None)
-    emb = (torch.randn(2, 24, generator=cuda_gen, device="cuda").to(dtype)
-           if film else None)
+    block, x, emb, x2 = _fused_case(cuda_gen, dtype, c1, c2, cout, t, dilation, film)
     launches = (frb.fused_resblock_stats.launches, frb.fused_resblock_apply.launches)
     with torch.no_grad():
         got = frb.fused_resblock(block, x, emb, x2).float()
@@ -215,3 +222,16 @@ def test_fused_resblock_matches_plain(cuda_gen, dtype, tol, c1, c2, cout, t,
     assert ((got - want).abs() - tol * want.abs()).max().item() <= tol
     assert frb.fused_resblock_stats.launches == launches[0] + 1
     assert frb.fused_resblock_apply.launches == launches[1] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_resblock_same_bits_twice(cuda_gen, dtype):
+    """No atomics and a fixed summation order: two calls give the same bits,
+    with a skip projection and with the identity skip."""
+    for c1, c2 in ((64, 64), (64, 0)):
+        block, x, emb, x2 = _fused_case(cuda_gen, dtype, c1, c2, 64, 2000, 2, True)
+        with torch.no_grad():
+            first = frb.fused_resblock(block, x, emb, x2)
+            second = frb.fused_resblock(block, x, emb, x2)
+        assert torch.equal(first, second), (c1, c2)

@@ -12,12 +12,14 @@ Counterpart of ``attic/fused_resblock.py``, the TPU pair behind
   recompute h1 over the tile and its halo, z = gelu(GroupNorm-2 + FiLM),
   zeroed outside [0, T), out = dilated conv_out(z) + skip, stored once.
 
-What bounds them on the card is operations: conv_in runs in both kernels
-and conv_out in the second, 3 x 3 x Cin x Cout x 2 flops per position,
-against x read twice and the output written once. The design keeps every
-intermediate (g, h1, z) on chip and streams input channels through shared
-memory (``csrc/fused_resblock.cu``, whose header has the details); its
-products are float32 FMAs on the CUDA cores, right before fast.
+conv_in runs in both kernels and conv_out in the second, 3 x 3 x Cin x
+Cout x 2 flops per position, against x read twice and the output written
+once. The design keeps every intermediate (g, h1, z) on chip and runs each
+convolution as an implicit GEMM per tap on the tensor cores: bf16
+``mma.sync`` for bf16, 3xTF32 (three TF32 products of split operands) for
+float32 (``csrc/fused_resblock.cu``, whose header has the details). The
+wrapper hands the kernels each convolution's weights as [tap, Cout, Cin]
+in the compute dtype (``_conv_weight``).
 
 Outside the kernels, as in the TPU wrapper: GroupNorm-1's per-channel
 affine (the port's ``group_norm_coeffs`` kernel, one launch per input, each
@@ -67,6 +69,7 @@ __all__ = [
 MAX_DILATION = 7
 MAX_COUT = 256
 STATS_TILE = 128
+WEIGHT_ALIGN = 8  # weight rows are padded to a multiple of 8 input channels
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -198,7 +201,8 @@ def _library():
     lib = load_library("fused_resblock")
     for fn, want in ((lib.fused_resblock_max_dilation, MAX_DILATION),
                      (lib.fused_resblock_max_cout, MAX_COUT),
-                     (lib.fused_resblock_stats_tile, STATS_TILE)):
+                     (lib.fused_resblock_stats_tile, STATS_TILE),
+                     (lib.fused_resblock_weight_align, WEIGHT_ALIGN)):
         fn.restype = ctypes.c_int
         if fn() != want:
             raise RuntimeError(f"csrc/fused_resblock.cu: {fn.__name__} is {fn()}, "
@@ -216,11 +220,16 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _conv_weight(layer, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """torch conv weight [Cout, Cin, K] -> float32 [K, Cin, Cout] rounded to
-    the compute dtype, and the rounded bias."""
+    """torch conv weight [Cout, Cin, K] -> the kernels' MMA operand [K, Cout,
+    Cin'] in the compute dtype, row-major per tap, with Cin zero-padded to
+    Cin' = a multiple of ``WEIGHT_ALIGN`` so every row is whole 16-byte
+    copies; and the bias rounded to the dtype, in float32."""
     c = layer.conv
-    return (_rounded(c.weight, dtype).permute(2, 1, 0).contiguous(),
-            _rounded(c.bias, dtype))
+    cout, cin, taps = c.weight.shape
+    w = torch.zeros((taps, cout, -(-cin // WEIGHT_ALIGN) * WEIGHT_ALIGN), dtype=dtype,
+                    device=c.weight.device)
+    w[:, :, :cin] = c.weight.detach().permute(2, 0, 1)
+    return w, _rounded(c.bias, dtype)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -252,7 +261,7 @@ def fused_resblock_apply(xs, norm1, conv_in, norm2, conv_out, skip,
                          dilation: int) -> torch.Tensor:
     """Kernel 5: out = conv_out(gelu(GroupNorm-2 + FiLM of h1)) + skip,
     [N, Cout, T] in x's dtype. ``skip`` is the 1x1 projection's
-    (weight [Cin, Cout], bias) or (None, None) for the identity."""
+    ``_conv_weight`` or (None, None) for the identity."""
     x = xs[0]
     n, c1, t = x.shape
     c2 = xs[1].shape[1] if len(xs) > 1 else 0
@@ -295,8 +304,7 @@ def fused_resblock(
     norm2 = _norm_mid_affine(block, part, emb)
     skip = (None, None)
     if block.skip_proj is not None:
-        w, b = _conv_weight(block.skip_proj, dtype)
-        skip = (w[0].contiguous(), b)
+        skip = _conv_weight(block.skip_proj, dtype)
     return fused_resblock_apply(xs, norm1, conv_in, norm2,
                                 _conv_weight(block.conv_out, dtype), skip,
                                 block.conv_out.conv.dilation[0])
