@@ -28,8 +28,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    statistics alone in f32 and bf16, VQ at B=3200 and B=200. The
    statistics and VQ wrappers, and their library calls, are also timed
    eagerly (back-to-back calls, host dispatch included), with the host's
-   time per call. Every ticket counter (ops/tickets.py) is 0 after this
-   phase and after the last.
+   time per call. The GroupNorm backward (CUDA: statistics, reduce, dx) against
+   group_norm_backward_plain at the guidance networks' largest shape
+   [16, 32, 64000], at the guided CLIs' [1, 32, 64000] and [2, 32, 64000]
+   (each row's reduce split over several blocks and merged by the row's
+   last block) and at [3, 20, 333] (odd T, 5 channels a group), f32 and
+   bf16, with and without FiLM and GELU (dx within 1e-4 / 2e-2 of max(|dx|,
+   1), S1 and S2 within 1e-4 of their largest), twice for the same bits;
+   the kernel (reduce + dx) timed at [16, 32, 64000] and [1, 32, 64000]
+   beside its bound (x and dy read, dx written), the wrapper (with its
+   statistics launch), its plain version and
+   torch.ops.aten.native_group_norm_backward (no FiLM, no GELU). Every ticket
+   counter (ops/tickets.py) is 0 after this phase and after the last.
 3. Main paths, each with every launch count set to 0 just before it and
    read just after. The swap: a full-width VQ-VAE (unet64 predictor,
    conv-mfcc-ulaw encoder, 512 x 1024 codebook, 251 labels) on seeded
@@ -44,7 +54,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    with --fuse-levels 2, 5 quadratic-warped DDPM steps, 2 samples; asserts
    two 4 s WAVs and 10 launches of each fused kernel per step; then one
    full-width predictor call with fuse_levels=2 against fuse_levels=0, in
-   f32 (TF32 off) and bf16.
+   f32 (TF32 off) and bf16. Guided sampling, each CLI's ``main``: the swap
+   with encoder-predictor guidance (``sample_vqvae --enc-pred-path``, an
+   EncoderPredictorModel at base 32 on seeded weights), classifier-guided
+   unconditional sampling (``sample_diffusion --classifier-path``, a
+   251-label ClassifierModel at base 32, in bf16 at --fuse-levels 2) and
+   classifier-free guidance (``sample_vqvae_uncond``); asserts one GroupNorm
+   backward (a statistics launch, then the reduce and dx launches) per
+   guidance-network GroupNorm per step (131 and 55) and the forward launch
+   counts.
 4. Serving time: encode + 10-step DPM++ decode of 16 clips in f32 (TF32
    convolutions, PyTorch's default) and bf16, a torch.profiler breakdown
    of one predictor call by kernel class with its kernel launch count; a
@@ -53,7 +71,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    around the kernels (the fused ResBlock's GroupNorm-2 merge and fold).
    Then unconditional sampling of 16 clips with 10 quadratic-warped DPM++
    steps at fuse_levels 0 and 2 (in turns) in bf16 and f32, and a profile
-   of one bf16 predictor call at each.
+   of one bf16 predictor call at each. Guided serving in f32: the swap of 16
+   clips with encoder-predictor guidance and 16 classifier-guided
+   unconditional samples, 10 DPM++ steps each, with peak device memory and a
+   profile of one guided step.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -76,9 +97,14 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from kernel_ab import cuda_ms, eager_ms, seed_weights  # noqa: E402
-from vq_voice_swap_torch import sample_diffusion, sample_vqvae  # noqa: E402
+from vq_voice_swap_torch import sample_diffusion, sample_vqvae, sample_vqvae_uncond  # noqa: E402
+from vq_voice_swap_torch.classifier_model import (  # noqa: E402
+    ClassifierModel,
+    EncoderPredictorModel,
+)
 from vq_voice_swap_torch.diffusion import make_warp  # noqa: E402
 from vq_voice_swap_torch.diffusion_model import DiffusionModel  # noqa: E402
+from vq_voice_swap_torch.models import make_encoder  # noqa: E402
 from vq_voice_swap_torch.models.layers import ResBlock  # noqa: E402
 from vq_voice_swap_torch.ops import cuda_build  # noqa: E402
 from vq_voice_swap_torch.ops import fused_resblock as frb  # noqa: E402
@@ -104,6 +130,11 @@ FUSE_LEVELS = 2
 FUSED_PER_PREDICTOR = 10  # unet64, fuse_levels=2: 4 down and 6 up blocks
 TWO_INPUT_PER_PREDICTOR = 5  # up blocks whose skip is the second input
 EMB = 256  # unet64's embedding width
+# The guidance networks, at the JAX package's training defaults
+# (train/loops.py:1151-1155, 1216-1220): 131 and 55 GroupNorms.
+ENC_PRED_KWARGS = dict(base_channels=32, num_latents=512)
+CLASSIFIER_KWARGS = dict(num_labels=251, base_channels=32)
+GN_PER_CLASSIFIER = 55  # 27 ResBlocks x 2 + out_norm
 
 
 def bound_ms(n_bytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
@@ -232,6 +263,105 @@ def check_group_norm(dev, gen):
             ]
         del x
     return entries
+
+
+def check_group_norm_backward(dev, gen):
+    """The backward kernels vs group_norm_backward_plain; returns the JSON
+    entry (f32 at the largest guidance-network shape, no FiLM, no GELU: the
+    function native_group_norm_backward computes)."""
+    # The guided CLIs' batches 1 (enc-pred) and 2 (classifier) have few
+    # rows, so each row's reduce is split over several blocks whose partial
+    # sums the row's last block merges; the serving batch has one block a row.
+    cases = [((BATCH, 32, SAMPLES), 32, False), ((1, 32, SAMPLES), 32, True),
+             ((2, 32, SAMPLES), 32, True), ((3, 20, 333), 4, False)]
+    err = 0.0
+    for shape, groups, split in cases:
+        n, c, _ = shape
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+            dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            slices = gn.bwd_slices(x)[0]
+            assert (slices > 1) == split, (shape, slices)
+            w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+            b = 0.2 * torch.randn(c, generator=gen, device=dev)
+            proj = (0.5 * torch.randn(n, 2 * c, generator=gen, device=dev)).to(dtype)
+            for film in (None, tuple(proj.chunk(2, dim=-1))):
+                for use_gelu in (False, True):
+                    got = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, film)
+                    again = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, film)
+                    want = gn.group_norm_backward_plain(x, dy, groups, w, b, 1e-5, use_gelu,
+                                                        film)
+                    torch.cuda.synchronize()
+                    e_dx = out_err(got[0], want[0])
+                    e_s = max(((g - v).abs().max() / v.abs().max()).item()
+                              for g, v in zip(got[1:], want[1:]))
+                    same_bits = all(torch.equal(u, v) for u, v in zip(got, again))
+                    print(f"groupnorm backward {list(shape)} {str(dtype)[6:]} "
+                          f"film={film is not None} gelu={use_gelu}, {slices} reduce "
+                          f"block(s) a row: dx err {e_dx:.3g} "
+                          f"(limit {tol}), S1/S2 err {e_s:.3g} of their largest (limit "
+                          f"1e-4), same bits twice {same_bits}")
+                    assert e_dx <= tol and e_s <= 1e-4 and same_bits, (shape, dtype)
+                    if dtype == torch.float32:
+                        err = max(err, (got[0] - want[0]).abs().max().item())
+                    del got, again, want
+            del x, dy
+    torch.cuda.empty_cache()
+
+    # Timing at [16, 32, 64000] (x and dy, 131-262 MB each, exceed L2) and
+    # at the enc-pred CLI's [1, 32, 64000] (16 reduce blocks a row). The
+    # kernel's own time is its two launches (reduce, dx) from given (mean,
+    # var), as native_group_norm_backward takes (mean, rstd); the wrapper
+    # adds the statistics launch.
+    entry = None
+    for n, dtype in ((BATCH, torch.float32), (BATCH, torch.bfloat16), (1, torch.float32)):
+        c, t, groups = 32, SAMPLES, 32
+        w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+        b = 0.2 * torch.randn(c, generator=gen, device=dev)
+        proj = 0.5 * torch.randn(n, 2 * c, generator=gen, device=dev)
+        x = torch.randn((n, c, t), generator=gen, device=dev).to(dtype)
+        dy = torch.randn((n, c, t), generator=gen, device=dev).to(dtype)
+        film = tuple(proj.to(dtype).chunk(2, dim=-1))
+        wl, bl = w.to(dtype), b.to(dtype)
+        _, mean, rstd = torch.ops.aten.native_group_norm(x, wl, bl, n, c, t, groups, 1e-5)
+        mean_g, var_g = gn.group_norm_stats(x, groups)
+        times = {}
+        for label, f, g in (("plain", None, False), ("film+gelu", film, True)):
+            times[label] = (
+                cuda_ms(lambda: gn._launch_bwd(x, dy, groups, mean_g, var_g, w, b, 1e-5, g, f),
+                        20),
+                cuda_ms(lambda: gn.group_norm_backward(x, dy, groups, w, b, 1e-5, g, f), 20),
+                cuda_ms(lambda: gn.group_norm_backward_plain(x, dy, groups, w, b, 1e-5, g, f),
+                        5),
+            )
+        stats_ms = cuda_ms(lambda: gn.group_norm_stats(x, groups), 20)
+        lib = cuda_ms(lambda: torch.ops.aten.native_group_norm_backward(
+            dy, x, mean, rstd, wl, n, c, t, groups, [True, False, False]), 20)
+        x_bytes = x.numel() * x.element_size()
+        # Bound: x and dy read once, dx written once; ~15 flops an element
+        # without GELU, ~60 with GELU' recomputed in both kernels.
+        bnd, by = bound_ms(3 * x_bytes, 15 * x.numel())
+        bnd_g, _ = bound_ms(3 * x_bytes, 60 * x.numel())
+        (ms, wrap, plain), (ms_g, wrap_g, plain_g) = times["plain"], times["film+gelu"]
+        print(f"groupnorm backward timing {[n, c, t]} {str(dtype)[6:]}, "
+              f"{gn.bwd_slices(x)[0]} reduce block(s) a row: no FiLM, no GELU: kernel "
+              f"(reduce + dx) {ms:.4f} ms ({100 * bnd / ms:.1f}% of its bound {bnd:.4f} by "
+              f"{by}; native_group_norm_backward (dx) {lib:.4f}; plain {plain:.4f}), wrapper "
+              f"with the (mean, var) statistics launch {wrap:.4f} ms; FiLM + GELU: kernel "
+              f"{ms_g:.4f} ms (bound {bnd_g:.4f}, plain {plain_g:.4f}), wrapper {wrap_g:.4f} "
+              f"ms; the statistics launch alone {stats_ms:.4f} ms. Design: the kernel reads "
+              f"x and dy twice (reduce, dx) and writes dx once, 5 passes against the "
+              f"bound's 3; the wrapper's statistics launch reads x a third time")
+        if entry is None:
+            entry = dict(name="group_norm_backward", route="cuda",
+                         source="vq_voice_swap_torch/csrc/group_norm_bwd.cu",
+                         replaces="vq_voice_swap_tpu/ops/fused_norm.py:280 (_fgn_bwd; no "
+                                  "Pallas kernel)",
+                         launches=0, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                         bound_by=by, library_ms=lib, wrapper_ms=wrap, passes=5)
+        del x, dy, mean, rstd, mean_g, var_g
+    torch.cuda.empty_cache()
+    return entry
 
 
 def _vq_pick_gap(d, x, got, want):
@@ -470,7 +600,7 @@ def write_wav(path: str, samples: np.ndarray) -> None:
 
 # Each kernel's wrappers; the statistics kernel has two entry points.
 COUNTED = (vqa.vq_assign, gn.group_norm_coeffs, gn.group_norm_stats, gn.group_norm_apply,
-           frb.fused_resblock_stats, frb.fused_resblock_apply)
+           gn.group_norm_backward, frb.fused_resblock_stats, frb.fused_resblock_apply)
 KERNEL_WRAPPERS = {"group_norm_stats": ("group_norm_coeffs", "group_norm_stats")}
 
 
@@ -525,7 +655,7 @@ def main_path(dev, workdir: str, clips: np.ndarray):
         # Every GroupNorm is one statistics launch (coefficients) and one apply.
         assert counts["group_norm_apply"] == GN_PER_PREDICTOR * steps
         assert counts["group_norm_coeffs"] == GN_PER_PREDICTOR * steps
-        assert counts["group_norm_stats"] == 0
+        assert counts["group_norm_stats"] == counts["group_norm_backward"] == 0
         assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == 0
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
@@ -573,7 +703,7 @@ def sampling_path(dev, workdir: str):
     unfused_gn = (GN_PER_PREDICTOR - 2 * FUSED_PER_PREDICTOR) * steps
     assert counts["group_norm_apply"] == unfused_gn
     assert counts["group_norm_coeffs"] == unfused_gn + fused + TWO_INPUT_PER_PREDICTOR * steps
-    assert counts["group_norm_stats"] == 0
+    assert counts["group_norm_stats"] == counts["group_norm_backward"] == 0
     assert counts["vq_assign"] == 0
 
     # One full-width predictor call, fuse_levels=2 against 0, same input.
@@ -606,6 +736,97 @@ def sampling_path(dev, workdir: str):
           f"max |out| {rel:.3g}, mean |diff| / mean |out| {mean_rel:.3g}")
     torch.backends.cudnn.allow_tf32 = True
     return ckpt, counts
+
+
+def guidance_checkpoints(workdir: str):
+    """Seeded full-width guidance networks for the swap flagship, saved as
+    .npz: (encoder predictor, classifier)."""
+    enc_rate = make_encoder(MODEL_KWARGS["enc_name"], MODEL_KWARGS["base_channels"]
+                            ).downsample_rate
+    paths = []
+    for name, model, seed in (
+        ("enc_pred", EncoderPredictorModel(downsample_rate=enc_rate, **ENC_PRED_KWARGS), 5),
+        ("classifier", ClassifierModel(**CLASSIFIER_KWARGS), 6),
+    ):
+        seed_weights(model, seed)
+        paths.append(os.path.join(workdir, f"{name}.npz"))
+        model.save(paths[-1])
+        print(f"guidance network {name}: {type(model).__name__}, "
+              f"{sum(p.numel() for p in model.parameters())} parameters, saved to npz")
+    return paths
+
+
+def _wav_frames(path: str):
+    with wave.open(path, "rb") as w:
+        frames = w.getnframes()
+        return frames, np.frombuffer(w.readframes(frames), "<i2")
+
+
+def guided_paths(dev, workdir: str, ckpt: str, uncond_ckpt: str, ep_ckpt: str,
+                 clf_ckpt: str):
+    """The three guided CLIs at batch 1-2, each with the counts set to 0
+    just before it; returns {path: counts}."""
+    src = os.path.join(workdir, "in.wav")
+    steps = 3
+    runs = {}
+
+    def run(name, fn, argv):
+        reset_counts()
+        t0 = time.perf_counter()
+        fn(argv)
+        torch.cuda.synchronize()
+        runs[name] = read_counts()
+        print(f"guided path {name}: {time.perf_counter() - t0:.3f} s, {steps} steps, "
+              f"launches {runs[name]}")
+        return runs[name]
+
+    out = os.path.join(workdir, "out_enc_pred.wav")
+    counts = run("sample_vqvae --enc-pred-path", sample_vqvae.main, [
+        "--label", "7", "--input-file", src, "--sample-steps", str(steps), "--sampler",
+        "dpmpp", "--enc-pred-path", ep_ckpt, "--check-vq", "--device", "cuda", ckpt, out])
+    frames, data = _wav_frames(out)
+    assert frames == SAMPLES and np.abs(data).max() > 0
+    # Encode, the guidance targets, the --check-vq re-encode.
+    assert counts["vq_assign"] == 3
+    # Each GroupNorm's backward: a statistics launch (for rstd), then the
+    # reduce and dx launches of the backward kernel.
+    assert counts["group_norm_backward"] == 2 * GN_PER_PREDICTOR * steps
+    assert counts["group_norm_stats"] == GN_PER_PREDICTOR * steps
+    assert counts["group_norm_coeffs"] == counts["group_norm_apply"] == \
+        2 * GN_PER_PREDICTOR * steps
+    assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == 0
+
+    out = os.path.join(workdir, "guided_samples")
+    counts = run("sample_diffusion --classifier-path", sample_diffusion.main, [
+        "--checkpoint-path", uncond_ckpt, "--bf16", "--fuse-levels", str(FUSE_LEVELS),
+        "--sampler", "dpmpp", "--sample-steps", str(steps), "--constrain",
+        "--classifier-path", clf_ckpt, "--num-samples", "2", "--batch-size", "2",
+        "--sample-path", out, "--device", "cuda"])
+    for name in ("sample_000000.wav", "sample_000001.wav"):
+        frames, data = _wav_frames(os.path.join(out, name))
+        assert frames == SAMPLES and np.abs(data).max() > 0
+    fused = FUSED_PER_PREDICTOR * steps
+    unfused_gn = (GN_PER_PREDICTOR - 2 * FUSED_PER_PREDICTOR) * steps
+    clf_gn = GN_PER_CLASSIFIER * steps
+    assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == fused
+    assert counts["group_norm_backward"] == 2 * counts["group_norm_stats"] == 2 * clf_gn
+    assert counts["group_norm_apply"] == unfused_gn + clf_gn
+    assert counts["group_norm_coeffs"] == (unfused_gn + fused + TWO_INPUT_PER_PREDICTOR * steps
+                                           + clf_gn)
+    assert counts["vq_assign"] == 0
+
+    out = os.path.join(workdir, "out_uncond.wav")
+    counts = run("sample_vqvae_uncond", sample_vqvae_uncond.main, [
+        "--label", "7", "--input-file", src, "--sample-steps", str(steps), "--sampler",
+        "dpmpp", "--guide-label-scale", "1", "--guide-vq-scale", "0.5", "--schedule",
+        "quadratic", "--device", "cuda", ckpt, out])
+    frames, data = _wav_frames(out)
+    assert frames == SAMPLES and np.abs(data).max() > 0
+    assert counts["vq_assign"] == 1
+    # One predictor call per step on the 3x stacked batch; nothing differentiated.
+    assert counts["group_norm_coeffs"] == counts["group_norm_apply"] == GN_PER_PREDICTOR * steps
+    assert counts["group_norm_backward"] == counts["group_norm_stats"] == 0
+    return runs
 
 
 # ------------------------------------------------------------------ phase 4
@@ -658,6 +879,8 @@ def _kernel_class(name: str) -> str:
         return "fused resblock apply (CUDA)"
     if "group_norm_stats_kernel" in name:
         return "groupnorm stats + fold (CUDA)"
+    if "group_norm_bwd_" in name:
+        return "groupnorm backward reduce + dx (CUDA)"
     if name.startswith("apply_kernel"):
         return "groupnorm apply (Triton)"
     if "vq_assign_kernel" in name:
@@ -830,6 +1053,69 @@ def sampling_serving_time(dev, ckpt: str, smi: str):
     print(f"sampling, for scale: mean |bf16 - f32| waveform gap at fuse_levels=0 {gap:.4g}")
 
 
+def guided_serving_time(dev, ckpt: str, uncond_ckpt: str, ep_ckpt: str, clf_ckpt: str,
+                        clips: np.ndarray, smi: str):
+    """Guided serving in f32 (TF32 convolutions, PyTorch's default), 10
+    DPM++ steps, 3 timed runs after a warm one each, with peak device
+    memory: the swap of BATCH clips with encoder-predictor guidance, and
+    BATCH classifier-guided unconditional samples; then a profile of one
+    guided step of each (predictor call + guidance gradient)."""
+    audio = torch.from_numpy(clips[:, :, None]).to(dev)
+    labels = torch.arange(BATCH, device=dev) * 13 % MODEL_KWARGS["num_labels"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x_T = torch.randn(BATCH, SAMPLES, 1, generator=gen, device=dev)
+    model = VQVAE.load(ckpt, device=dev)
+    enc_pred = EncoderPredictorModel.load(ep_ckpt, device=dev)
+    uncond = DiffusionModel.load(uncond_ckpt, device=dev)
+    classifier = ClassifierModel.load(clf_ckpt, device=dev)
+
+    def swap():
+        with torch.no_grad():
+            codes = model.encode(audio)
+            return model.decode(codes, labels=labels, steps=10, sampler="dpmpp",
+                                constrain=True, x_T=x_T, enc_pred=enc_pred)
+
+    def sample():
+        with torch.no_grad():
+            return uncond.diffusion.dpmpp_sample(
+                x_T, uncond.predict_eps, 10, constrain=True,
+                cond_fn=classifier.cond_fn(labels, 1.0))
+
+    for name, fn in (("enc-pred guided swap", swap), ("classifier-guided sampling", sample)):
+        fn()  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        assert out.shape == (BATCH, SAMPLES, 1) and torch.isfinite(out).all()
+        seconds = sorted(runs)[1]
+        print(f"guided serving f32 {name} on {smi}: 10-step DPM++ of {BATCH} x 4 s, "
+              f"median {seconds:.4f} s of {[round(r, 4) for r in runs]}, real-time factor "
+              f"{BATCH * 4 / seconds:.2f}, peak device memory {peak:.2f} GiB, mean |sample| "
+              f"{out.abs().mean().item():.4g}")
+
+    ts = torch.full((BATCH,), 0.5, device=dev)
+    cond = torch.randn(BATCH, SAMPLES // 320, model.cond_channels, generator=gen, device=dev)
+    targets = torch.randint(0, MODEL_KWARGS["dictionary_size"], (BATCH, SAMPLES // 320),
+                            generator=gen, device=dev)
+    ep_fn = enc_pred.cond_fn(targets, 1.0)
+    clf_fn = classifier.cond_fn(labels, 1.0)
+    launches = profile_call(lambda: (model.predict_eps(x_T, ts, cond, labels), ep_fn(x_T, ts)),
+                            "f32 enc-pred guided step")
+    print(f"  enc-pred guided step: {launches} kernel launches")
+    launches = profile_call(lambda: (uncond.predict_eps(x_T, ts), clf_fn(x_T, ts)),
+                            "f32 classifier-guided step")
+    print(f"  classifier-guided step: {launches} kernel launches")
+    del model, enc_pred, uncond, classifier
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -855,6 +1141,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = check_group_norm(dev, gen) + [check_vq(dev, gen)]
     torch.cuda.empty_cache()
+    kernels.append(check_group_norm_backward(dev, gen))
     kernels += check_fused_resblock(dev, gen)
     check_tickets("the kernel checks")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for serving
@@ -867,12 +1154,18 @@ def main() -> int:
         # for VQ and GroupNorm, unconditional sampling for the fused pair.
         ckpt, swap_launches = main_path(dev, workdir, clips)
         uncond_ckpt, sampling_launches = sampling_path(dev, workdir)
+        ep_ckpt, clf_ckpt = guidance_checkpoints(workdir)
+        guided = guided_paths(dev, workdir, ckpt, uncond_ckpt, ep_ckpt, clf_ckpt)
         for k in kernels:
+            if k["name"] == "group_norm_backward":  # the two differentiating paths
+                k["launches"] = sum(c["group_norm_backward"] for c in guided.values())
+                continue
             path = sampling_launches if k["name"].startswith("fused") else swap_launches
             k["launches"] = sum(path[w] for w in KERNEL_WRAPPERS.get(k["name"], (k["name"],)))
         print(f"phase 3: {time.perf_counter() - t_start:.1f} s")
         serving_time(dev, ckpt, clips, smi)
         sampling_serving_time(dev, uncond_ckpt, smi)
+        guided_serving_time(dev, ckpt, uncond_ckpt, ep_ckpt, clf_ckpt, clips, smi)
     check_tickets("the main paths and serving")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 

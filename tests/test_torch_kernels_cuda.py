@@ -235,3 +235,83 @@ def test_fused_resblock_same_bits_twice(cuda_gen, dtype):
             first = frb.fused_resblock(block, x, emb, x2)
             second = frb.fused_resblock(block, x, emb, x2)
         assert torch.equal(first, second), (c1, c2)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| / max(|want|, 1): absolute below 1, relative
+    above (one bf16 rounding step is 2^-8 of |y|)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 32, 3000), 32),
+    ((1, 32, 64000), 32),   # few rows: each split over 16 reduce blocks
+    ((4, 512, 250), 32),    # many short rows
+    ((3, 20, 333), 4),      # odd T (scalar accesses), 5 channels a group
+])
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("use_gelu", [False, True])
+def test_group_norm_backward_kernel_matches_plain(cuda_gen, dtype, tol, shape, groups, film,
+                                                  use_gelu):
+    """dx, S1 and S2 against group_norm_backward_plain; the same bits from a
+    second call; every ticket counter left at 0."""
+    x, w, b, ab = _coeffs_case(cuda_gen, shape, dtype, film)
+    dy = torch.randn(shape, generator=cuda_gen, device="cuda").to(dtype)
+    launches = (gn.group_norm_backward.launches, gn.group_norm_stats.launches)
+    got = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, ab)
+    again = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, ab)
+    want = gn.group_norm_backward_plain(x, dy, groups, w, b, 1e-5, use_gelu, ab)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and got[0].shape == shape
+    assert _rel_err(got[0], want[0]) <= tol
+    for g, v in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, v, atol=1e-4 * v.abs().max().item(), rtol=1e-4)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert gn.group_norm_backward.launches == launches[0] + 4  # reduce and dx, twice
+    assert gn.group_norm_stats.launches == launches[1] + 2
+    if shape == (1, 32, 64000):
+        assert gn.bwd_slices(x)[0] > 1
+    for buf in ticket_buffers():
+        assert not buf.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_group_norm_function_matches_plain_autograd(cuda_gen, dtype, tol):
+    """Under grad, GroupNorm runs through GroupNormFunction: its output has
+    the no-grad bits, and its gradients (x, the affine, FiLM as the halves
+    of one [N, 2C] projection) are autograd's through the plain versions.
+    Without grad it launches the two forward kernels and no backward."""
+    shape, groups = (2, 64, 3000), 32
+    x0, w0, b0, _ = _coeffs_case(cuda_gen, shape, dtype, False)
+    p0 = torch.randn(shape[0], 2 * shape[1], generator=cuda_gen, device="cuda").to(dtype)
+    dy = torch.randn(shape, generator=cuda_gen, device="cuda").to(dtype)
+    launches = [f.launches for f in (gn.group_norm_coeffs, gn.group_norm_apply,
+                                     gn.group_norm_backward)]
+    with torch.no_grad():
+        y0 = gn.group_norm(x0, w0, b0, groups, 1e-5, True, tuple(p0.chunk(2, dim=1)))
+    assert [f.launches for f in (gn.group_norm_coeffs, gn.group_norm_apply,
+                                 gn.group_norm_backward)] == [launches[0] + 1,
+                                                              launches[1] + 1, launches[2]]
+    kernel = [v.clone().requires_grad_() for v in (x0, w0, b0, p0)]
+    plain = [v.clone().requires_grad_() for v in (x0, w0, b0, p0)]
+    x, w, b, p = kernel
+    y = gn.group_norm(x, w, b, groups, 1e-5, True, tuple(p.chunk(2, dim=1)))
+    assert "GroupNormFunction" in type(y.grad_fn).__name__
+    assert torch.equal(y, y0)
+    y.backward(dy)
+    x, w, b, p = plain
+    film = tuple(p.chunk(2, dim=1))
+    coeffs = gn.group_norm_coeffs_plain(x, groups, w, b, 1e-5, film)
+    gn.group_norm_apply_plain(x, *coeffs, True).backward(dy)
+    for k, v in zip(kernel, plain):
+        assert k.grad.dtype == v.grad.dtype
+        if k.ndim == 3:
+            assert _rel_err(k.grad, v.grad) <= tol
+        else:
+            scale = v.grad.float().abs().max().item()
+            assert (k.grad.float() - v.grad.float()).abs().max().item() <= tol * scale

@@ -6,7 +6,11 @@ All sampler math is float32 whatever the model's compute dtype. Noise comes
 from an explicit ``torch.Generator``; the per-step functions take their
 noise as an argument so tests can hand both packages the same draw. Every
 sampler takes an optional time ``warp`` (``warp.py``), applied to the
-float32 grid times as the JAX samplers apply it.
+float32 grid times as the JAX samplers apply it, and an optional guidance
+``cond_fn(x, ts)``, a gradient with respect to x (``input_grad``): the
+DDPM step shifts its posterior mean by sigma^2 * grad, DDIM and DPM++
+shift epsilon by -sqrt(1 - abar_t) * grad, as the JAX samplers do. Without
+it every sampler computes exactly what it computed before guidance.
 """
 
 from dataclasses import dataclass
@@ -18,9 +22,20 @@ import torch
 from .schedules import Schedule
 from .warp import TimeWarp
 
-__all__ = ["Diffusion", "broadcast_to_batch"]
+__all__ = ["Diffusion", "broadcast_to_batch", "input_grad"]
 
 PredictorFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+CondFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def input_grad(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The gradient of the scalar fn(x) with respect to x, taken on a
+    detached copy of x with grad enabled, so it works inside the samplers'
+    ``torch.no_grad()``."""
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_()
+        (grad,) = torch.autograd.grad(fn(xx), xx)
+    return grad
 
 
 def broadcast_to_batch(ts: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -91,9 +106,12 @@ class Diffusion:
         noise: torch.Tensor,
         sigma_large: bool = False,
         constrain: bool = False,
+        cond_fn: Optional[CondFn] = None,
     ) -> torch.Tensor:
-        """One reverse ancestral step x_t -> x_{t-step}; the x0 constraint
-        subtracts the per-sequence mean before clamping to [-1, 1]."""
+        """One reverse ancestral step x_t -> x_{t-step}. Guidance shifts the
+        posterior mean by sigma^2 * cond_fn(mean, t - step) and folds it back
+        into an equivalent epsilon; the x0 constraint subtracts the
+        per-sequence mean before clamping to [-1, 1]."""
         alphas_t = broadcast_to_batch(self.schedule(ts), x_t)
         alphas_prev = broadcast_to_batch(self.schedule(ts - step), x_t)
         alphas = alphas_t / alphas_prev
@@ -104,14 +122,21 @@ class Diffusion:
         else:
             sigmas = betas * (1.0 - alphas_prev) / (1.0 - alphas_t)
 
+        def eps_to_prev(eps: torch.Tensor) -> torch.Tensor:
+            return torch.rsqrt(alphas) * (x_t - betas * torch.rsqrt(1.0 - alphas_t) * eps)
+
+        if cond_fn is not None:
+            mean_pred = eps_to_prev(eps_pred)
+            mean_pred = mean_pred + sigmas * cond_fn(mean_pred, ts - step)
+            eps_pred = (-mean_pred * torch.sqrt(alphas) + x_t) * torch.sqrt(
+                1.0 - alphas_t
+            ) / betas
+
         if constrain:
             x0 = _clamp_x0(self.eps_to_x0(x_t, ts, eps_pred))
             eps_pred = self.x0_to_eps(x_t, ts, x0)
 
-        mean_pred = torch.rsqrt(alphas) * (
-            x_t - betas * torch.rsqrt(1.0 - alphas_t) * eps_pred
-        )
-        return mean_pred + torch.sqrt(sigmas) * noise
+        return eps_to_prev(eps_pred) + torch.sqrt(sigmas) * noise
 
     def ddpm_sample(
         self,
@@ -122,6 +147,7 @@ class Diffusion:
         sigma_large: bool = False,
         constrain: bool = False,
         warp: Optional[TimeWarp] = None,
+        cond_fn: Optional[CondFn] = None,
     ) -> torch.Tensor:
         """Ancestral sampling from x_T in ``steps`` reverse steps; the
         per-step noise is drawn from ``generator`` (none on the last step).
@@ -143,7 +169,7 @@ class Diffusion:
                 )
             x_t = self.ddpm_previous(
                 x_t, ts, dt, eps, noise, sigma_large=sigma_large,
-                constrain=constrain,
+                constrain=constrain, cond_fn=cond_fn,
             )
         return x_t
 
@@ -156,10 +182,15 @@ class Diffusion:
         noise: torch.Tensor,
         eta: float = 0.0,
         constrain: bool = False,
+        cond_fn: Optional[CondFn] = None,
     ) -> torch.Tensor:
-        """One DDIM reverse step x_t -> x_{t-step}; eta=0 is deterministic."""
+        """One DDIM reverse step x_t -> x_{t-step}; eta=0 is deterministic.
+        Guidance shifts epsilon by -sqrt(1 - abar_t) * cond_fn(x_t, t)."""
         abar_t = broadcast_to_batch(self.schedule(ts), x_t)
         abar_prev = broadcast_to_batch(self.schedule(ts - step), x_t)
+
+        if cond_fn is not None:
+            eps_pred = eps_pred - torch.sqrt(1.0 - abar_t) * cond_fn(x_t, ts)
 
         x0 = self.eps_to_x0(x_t, ts, eps_pred)
         if constrain:
@@ -183,6 +214,7 @@ class Diffusion:
         eta: float = 0.0,
         constrain: bool = False,
         warp: Optional[TimeWarp] = None,
+        cond_fn: Optional[CondFn] = None,
     ) -> torch.Tensor:
         """DDIM sampler; deterministic at eta=0. The final step lands on
         t=0, where it returns the predicted x0 exactly. Same warp semantics
@@ -203,6 +235,7 @@ class Diffusion:
                 noise = torch.zeros_like(x_t)
             x_t = self.ddim_previous(
                 x_t, ts, dt, eps, noise, eta=eta, constrain=constrain,
+                cond_fn=cond_fn,
             )
         return x_t
 
@@ -213,6 +246,7 @@ class Diffusion:
         steps: int,
         constrain: bool = False,
         warp: Optional[TimeWarp] = None,
+        cond_fn: Optional[CondFn] = None,
     ) -> torch.Tensor:
         """DPM-Solver++(2M) (Lu et al. 2022) in half-log-SNR space
         lambda = log(alpha / sigma), alpha = sqrt(abar), sigma = sqrt(1-abar):
@@ -224,7 +258,8 @@ class Diffusion:
         the ratio (alpha sigma_next) / (sigma alpha_next), exactly 0 on the
         final step (sigma_next = 0), so the sampler lands on x0 there and
         never forms the infinite lambda_next. Deterministic: it draws no
-        noise. ``warp`` maps every grid time t to warp(t).
+        noise. ``warp`` maps every grid time t to warp(t). Guidance shifts
+        epsilon as ``ddim_previous`` does.
         """
         x = x_T
         x0_prev = lam_prev = None
@@ -237,6 +272,8 @@ class Diffusion:
 
             eps = predictor(x, ts)
             abar_t = broadcast_to_batch(self.schedule(ts), x)
+            if cond_fn is not None:
+                eps = eps - torch.sqrt(1.0 - abar_t) * cond_fn(x, ts)
             x0 = self.eps_to_x0(x, ts, eps)
             if constrain:
                 x0 = _clamp_x0(x0)

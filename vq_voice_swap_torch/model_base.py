@@ -28,7 +28,7 @@ def register_model(cls: Type["ModelBase"]) -> Type["ModelBase"]:
 
 def _ensure_registered() -> None:
     """Import the modules that register the standard model classes."""
-    for mod in (".diffusion_model", ".vq_vae"):
+    for mod in (".diffusion_model", ".vq_vae", ".classifier_model"):
         importlib.import_module(mod, package=__package__)
 
 

@@ -89,7 +89,10 @@ class GroupNorm(nn.Module):
     """GroupNorm over the channels of [N, C, T] with the adaptive group
     count, eps 1e-5, float32 statistics, optionally followed by a FiLM
     h*(ca+1)+cb and exact GELU — all one stats and one apply kernel on the
-    card (ops/group_norm.py). ``norm`` holds the affine weight and bias."""
+    card (ops/group_norm.py). With grad enabled and an input that requires
+    it, the card runs it through ``GroupNormFunction``, whose backward is
+    the hand-written backward kernel. ``norm`` holds the affine weight and
+    bias."""
 
     def __init__(
         self, channels: int, max_groups: int = 32, eps: float = 1e-5,

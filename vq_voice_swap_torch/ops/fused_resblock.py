@@ -292,8 +292,15 @@ def fused_resblock(
 ) -> torch.Tensor:
     """Same-resolution ``ResBlock`` forward on concat(x, x2) ([N, C, T]
     each, the concat never materialised): the plain version for CPU
-    tensors, the two kernels for CUDA tensors."""
+    tensors, the two kernels for CUDA tensors. The pair has no backward:
+    with grad enabled, an input or a parameter that requires grad raises,
+    on either device, rather than taking a path autograd could run through."""
     xs = _inputs(block, x, emb, x2)
+    if torch.is_grad_enabled() and any(
+            v is not None and v.requires_grad for v in (x, emb, x2, *block.parameters())):
+        raise RuntimeError("the fused ResBlock has no backward: run gradients through "
+                           "the unfused block (load with fuse_levels=0), or call it "
+                           "under torch.no_grad()")
     if x.device.type == "cpu":
         return fused_resblock_plain(block, x, emb, x2)
     dtype = x.dtype

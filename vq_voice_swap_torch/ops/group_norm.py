@@ -23,9 +23,22 @@ Counterpart of ``vq_voice_swap_tpu/ops/fused_norm.py``:
 So one GroupNorm, with or without FiLM, is two launches on the card and no
 torch op between them. Both kernels are memory-bound streaming passes: the
 bound is x read once (statistics), and x read once plus y written once
-(apply), at the card's memory rate. Wrappers use the plain versions for
-CPU tensors and launch the kernels for CUDA tensors, with no fallback
-between them; each counts its launches.
+(apply), at the card's memory rate.
+
+The backward has no Pallas counterpart: it replaces the VJP the JAX package
+takes of GroupNorm (``_fgn_bwd``, fused_norm.py:280-288, and flax's
+autodiff of ``nn.GroupNorm``). ``group_norm_backward`` runs the statistics
+kernel to (mean, var) (rstd cannot be recovered from the folded a when the
+weight or the FiLM scale is 0), then ``csrc/group_norm_bwd.cu`` (its header
+has the design): dx in x's dtype and the per-row sums S1 = sum_t dz,
+S2 = sum_t dz * xhat, from which ``group_norm_param_grads`` forms the
+parameter gradients. ``GroupNormFunction`` ties forward and backward
+together; ``group_norm`` takes it only on CUDA, with grad enabled and an
+input that requires it, so the no-grad paths launch exactly the two
+forward kernels. On the CPU autograd runs through the plain versions.
+
+Wrappers use the plain versions for CPU tensors and launch the kernels for
+CUDA tensors, with no fallback between them; each counts its launches.
 """
 
 import ctypes
@@ -34,12 +47,17 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from .cuda_build import load_library
 from .tickets import tickets
 
 __all__ = [
     "group_norm",
+    "GroupNormFunction",
+    "group_norm_backward",
+    "group_norm_backward_plain",
+    "group_norm_param_grads",
     "group_norm_coeffs",
     "group_norm_coeffs_plain",
     "group_norm_stats",
@@ -58,6 +76,11 @@ STATS_TILE = 256 * 32
 STATS_MAX_SLICES = 256
 STATS_BLOCKS_PER_SM = 4
 MAX_SPAN = 1 << 24  # float32 counts stay exact below this
+# The backward's pass over a row, its limit on reduce blocks per row
+# (csrc/group_norm_bwd.cu reports both) and its reduce blocks per SM.
+BWD_TILE = 256 * 16
+BWD_MAX_SLICES = 64
+BWD_BLOCKS_PER_SM = 4
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -134,6 +157,65 @@ def group_norm_apply_plain(
     if use_gelu:
         y = F.gelu(y)
     return y.to(x.dtype)
+
+
+def gelu_grad(u: torch.Tensor) -> torch.Tensor:
+    """d/du of the exact (erf) GELU: Phi(u) + u * phi(u)."""
+    cdf = 0.5 * (1.0 + torch.erf(u * 0.7071067811865476))
+    return cdf + u * 0.3989422804014327 * torch.exp(-0.5 * u * u)
+
+
+def group_norm_backward_plain(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    use_gelu: bool,
+    film: Film = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``group_norm_backward`` step by step in float32: (dx in x's dtype,
+    S1, S2 [N, C]) for y = act((x - mean) * a + b) of ``fold_affine``."""
+    n, c, t = x.shape
+    rep = c // num_groups
+    mean, var = group_stats_plain(x, num_groups)
+    mean_c, a, b = fold_affine(mean, var, weight, bias, eps, film)
+    rstd = torch.rsqrt(var + eps).repeat_interleave(rep, dim=1)[..., None]
+    d = x.float() - mean_c[..., None]
+    xhat = d * rstd
+    dz = dy.float()
+    if use_gelu:
+        dz = dz * gelu_grad(d * a[..., None] + b[..., None])
+    s1 = dz.sum(dim=-1)
+    s2 = (dz * xhat).sum(dim=-1)
+    k = weight.float() * (1.0 if film is None else film[0].float() + 1.0)
+    k = k.expand(n, c)
+    count = rep * t
+    ga = (k * s1).view(n, num_groups, rep).sum(dim=-1) / count
+    gb = (k * s2).view(n, num_groups, rep).sum(dim=-1) / count
+    ga = ga.repeat_interleave(rep, dim=1)[..., None]
+    gb = gb.repeat_interleave(rep, dim=1)[..., None]
+    dx = rstd * (dz * k[..., None] - ga - xhat * gb)
+    return dx.to(x.dtype), s1, s2
+
+
+def group_norm_param_grads(
+    s1: torch.Tensor,
+    s2: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    film: Film = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Float32 (dweight [C], dbias [C], dca [N, C], dcb [N, C]) from the
+    backward's per-row S1, S2: dweight = sum_n s S2, dbias = sum_n s S1,
+    dca = w S2 + bias S1, dcb = S1, with s = ca + 1 (the FiLM gradients are
+    None without FiLM)."""
+    if film is None:
+        return s2.sum(dim=0), s1.sum(dim=0), None, None
+    s = film[0].float() + 1.0
+    dca = weight.float() * s2 + bias.float() * s1
+    return (s * s2).sum(dim=0), (s * s1).sum(dim=0), dca, s1
 
 
 # ------------------------------------------------------------- shared math
@@ -237,6 +319,24 @@ def _stats_library():
         [i, p, i, i, i, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, i, ll, p, p, p, ll, p]
     )
     lib.group_norm_stats.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library():
+    lib = load_library("group_norm_bwd")
+    for fn, want in ((lib.group_norm_bwd_tile, BWD_TILE),
+                     (lib.group_norm_bwd_max_slices, BWD_MAX_SLICES)):
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"csrc/group_norm_bwd.cu: {fn.__name__} is {fn()}, "
+                               f"the wrapper expects {want}")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.group_norm_bwd.argtypes = [
+        i, p, p, p, i, i, ll, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, p, p, i, ll,
+        i, p, p, p,
+    ]
+    lib.group_norm_bwd.restype = i
     return lib
 
 
@@ -358,9 +458,118 @@ def group_norm_apply(
     return y
 
 
+def group_norm_backward(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    use_gelu: bool,
+    film: Film = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``group_norm`` at x for an output gradient dy (x's
+    dtype and shape): (dx in x's dtype, float32 S1 = sum_t dz and
+    S2 = sum_t dz * xhat [N, C], for ``group_norm_param_grads``). On the
+    card: the statistics kernel to (mean, var), then the two backward
+    kernels."""
+    _check_x(x)
+    _check_groups(x, num_groups)
+    _check_coeffs(x, weight, bias, film, None)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)} on {x.device}, got "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    if not dy.is_contiguous():
+        raise ValueError("dy must be contiguous")
+    if x.device.type == "cpu":
+        return group_norm_backward_plain(x, dy, num_groups, weight, bias, eps, use_gelu, film)
+    mean, var = group_norm_stats(x, num_groups)
+    return _launch_bwd(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film)
+
+
+def bwd_slices(x: torch.Tensor) -> Tuple[int, int]:
+    """(slices, chunk): the backward reduce splits each (n, c) row of x over
+    ``slices`` blocks of ``chunk`` samples (a multiple of 8), so that few
+    rows still fill the card; with more than one, the last block of a row
+    merges the slices' partial sums in slice order."""
+    n, c, t = x.shape
+    rows = n * c
+    target = _sm_count(x.device) * BWD_BLOCKS_PER_SM
+    slices = max(1, min(target // max(rows, 1), -(-t // BWD_TILE), BWD_MAX_SLICES))
+    chunk = -(-t // slices)
+    return slices, -(-chunk // 8) * 8
+
+
+def _launch_bwd(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film):
+    """The backward's two kernels (reduce, then dx) from x's group (mean,
+    var); counts one launch for each."""
+    n, c, t = x.shape
+    rows = n * c
+    slices, chunk = bwd_slices(x)
+    dx = torch.empty_like(x)
+    sums = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    vec = (t % (16 // x.element_size()) == 0
+           and all(v.data_ptr() % 16 == 0 for v in (x, dy, dx)))
+    stream = torch.cuda.current_stream(x.device)
+    part = ticket = None
+    if slices > 1:
+        part = torch.empty(rows * slices * 2, dtype=torch.float32, device=x.device)
+        ticket = tickets(stream, rows)
+    ca = cb = None
+    film_code, film_ld = 0, 0
+    if film is not None:
+        ca, cb = film
+        film_code, film_ld = _DTYPE_CODE[ca.dtype], ca.stride(0)
+    w32, b32 = weight.float().contiguous(), bias.float().contiguous()
+    with torch.cuda.device(x.device):
+        err = _bwd_library().group_norm_bwd(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, t,
+            num_groups, slices, chunk, int(vec), _ptr(part), _ptr(ticket), mean.data_ptr(),
+            var.data_ptr(), float(eps), w32.data_ptr(), b32.data_ptr(), _ptr(ca), _ptr(cb),
+            film_code, film_ld, int(use_gelu), sums[0].data_ptr(), sums[1].data_ptr(),
+            stream.cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"group_norm_bwd kernel launch failed: CUDA error {err}")
+    group_norm_backward.launches += 2
+    return dx, sums[0], sums[1]
+
+
 group_norm_coeffs.launches = 0
 group_norm_stats.launches = 0
 group_norm_apply.launches = 0
+group_norm_backward.launches = 0
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """``group_norm`` with its backward: forward ``group_norm_coeffs`` +
+    ``group_norm_apply`` (the same launches and bits as without grad),
+    backward ``group_norm_backward``, with the parameter gradients formed
+    only when asked for. ca and cb are the FiLM pair (both None without
+    FiLM)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, ca, cb, num_groups, eps, use_gelu):
+        film = None if ca is None else (ca, cb)
+        mean_c, a, b = group_norm_coeffs(x, num_groups, weight, bias, eps, film)
+        ctx.save_for_backward(x, weight, bias, ca, cb)
+        ctx.num_groups, ctx.eps, ctx.use_gelu = num_groups, eps, use_gelu
+        return group_norm_apply(x, mean_c, a, b, use_gelu)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, weight, bias, ca, cb = ctx.saved_tensors
+        film = None if ca is None else (ca, cb)
+        dx, s1, s2 = group_norm_backward(x, dy.contiguous(), ctx.num_groups, weight, bias,
+                                         ctx.eps, ctx.use_gelu, film)
+        grads = [dx if ctx.needs_input_grad[0] else None, None, None, None, None]
+        if any(ctx.needs_input_grad[1:5]):
+            params = (weight, bias, ca, cb)
+            for i, g in enumerate(group_norm_param_grads(s1, s2, weight, bias, film), 1):
+                if ctx.needs_input_grad[i]:
+                    grads[i] = g.to(params[i - 1].dtype)
+        return (*grads, None, None, None)
 
 
 def group_norm(
@@ -373,6 +582,14 @@ def group_norm(
     film: Film = None,
 ) -> torch.Tensor:
     """GroupNorm over the channels of [N, C, T] with float32 statistics,
-    then optional FiLM h*(ca+1)+cb and exact GELU; output in x's dtype."""
+    then optional FiLM h*(ca+1)+cb and exact GELU; output in x's dtype.
+    On CUDA with grad enabled and an input that requires it, through
+    ``GroupNormFunction``; otherwise the two forward kernels alone (on the
+    CPU, autograd runs through the plain versions)."""
+    inputs = (x, weight, bias) + tuple(film or ())
+    if (x.device.type == "cuda" and torch.is_grad_enabled()
+            and any(v.requires_grad for v in inputs)):
+        ca, cb = film or (None, None)
+        return GroupNormFunction.apply(x, weight, bias, ca, cb, num_groups, eps, use_gelu)
     mean_c, a, b = group_norm_coeffs(x, num_groups, weight, bias, eps, film)
     return group_norm_apply(x, mean_c, a, b, use_gelu)

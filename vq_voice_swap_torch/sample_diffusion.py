@@ -9,10 +9,13 @@ and reproduces the rest exactly; files are written atomically (temp file,
 then rename), so an existing file is a complete one. --schedule names a
 time warp (quadratic is the t = s^2 recipe). --fuse-levels K runs the
 same-resolution ResBlocks of the UNet's first K levels through the fused
-ResBlock kernels. Runs on CUDA unless --device names another device.
+ResBlock kernels. --classifier-path guides every step with the gradient
+of a noised-audio classifier's log-probability of the sample's class,
+scaled by --classifier-scale; an unconditional model then samples its
+classes from the classifier's labels. Runs on CUDA unless --device names
+another device.
 
-Classifier guidance (--classifier-path, --classifier-scale), int8
-activations (--act-int8) and --tensor-parallel are not ported yet.
+int8 activations (--act-int8) and --tensor-parallel are not ported yet.
 
 Example:
     python -m vq_voice_swap_torch.sample_diffusion --checkpoint-path model.npz \\
@@ -28,6 +31,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .classifier_model import ClassifierModel
 from .data import ChunkWriter
 from .diffusion import make_warp
 from .diffusion_model import DiffusionModel
@@ -44,32 +48,46 @@ def _generators(seed: int, batch_index: int, device: torch.device) -> List[torch
     return [torch.Generator(device=device).manual_seed(int(s) >> 1) for s in states]
 
 
+def num_classes(model: DiffusionModel, classifier: Optional[ClassifierModel]) -> Optional[int]:
+    """The classes samples are drawn for: the model's, or the classifier's
+    when the model is unconditional; None for neither."""
+    if model.num_labels is None and classifier is not None:
+        return classifier.num_labels
+    return model.num_labels
+
+
 def sample_batch(args, model: DiffusionModel, warp, batch: int, batch_index: int,
-                 device: torch.device) -> torch.Tensor:
-    """[batch, SAMPLE_LEN, 1] float32 samples of one batch."""
+                 device: torch.device,
+                 classifier: Optional[ClassifierModel] = None) -> torch.Tensor:
+    """[batch, SAMPLE_LEN, 1] float32 samples of one batch, guided by
+    ``classifier`` towards each sample's class when given."""
     gen_x, gen_labels, gen_noise = _generators(args.seed, batch_index, device)
     x_T = torch.randn((batch, SAMPLE_LEN, 1), generator=gen_x, device=device)
     labels = None
-    if model.num_labels is not None:
+    classes = num_classes(model, classifier)
+    if classes is not None:
         if args.target_class is not None:
             labels = torch.full((batch,), args.target_class, dtype=torch.long,
                                 device=device)
         else:
-            labels = torch.randint(0, model.num_labels, (batch,), generator=gen_labels,
+            labels = torch.randint(0, classes, (batch,), generator=gen_labels,
                                    device=device)
+    model_labels = labels if model.num_labels is not None else None
+    cond_fn = None
+    if classifier is not None:
+        cond_fn = classifier.cond_fn(labels, args.classifier_scale)
 
     def pred(xs, ts):
-        return model.predict_eps(xs, ts, labels=labels)
+        return model.predict_eps(xs, ts, labels=model_labels)
 
     diffusion = model.diffusion
+    kw = dict(constrain=args.constrain, warp=warp, cond_fn=cond_fn)
     if args.sampler == "ddim":
         return diffusion.ddim_sample(x_T, pred, args.sample_steps, generator=gen_noise,
-                                     eta=args.eta, constrain=args.constrain, warp=warp)
+                                     eta=args.eta, **kw)
     if args.sampler == "dpmpp":
-        return diffusion.dpmpp_sample(x_T, pred, args.sample_steps,
-                                      constrain=args.constrain, warp=warp)
-    return diffusion.ddpm_sample(x_T, pred, args.sample_steps, generator=gen_noise,
-                                 constrain=args.constrain, warp=warp)
+        return diffusion.dpmpp_sample(x_T, pred, args.sample_steps, **kw)
+    return diffusion.ddpm_sample(x_T, pred, args.sample_steps, generator=gen_noise, **kw)
 
 
 def write_wav(path: str, samples: np.ndarray, encoding: str) -> None:
@@ -92,15 +110,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         args.checkpoint_path, dtype="bfloat16" if args.bf16 else None,
         device=device, fuse_levels=args.fuse_levels,
     )
+    classifier = None
+    if args.classifier_path:
+        classifier = ClassifierModel.load(args.classifier_path, device=device)
+    classes = num_classes(model, classifier)
     if args.target_class is not None:
-        if model.num_labels is None:
-            raise SystemExit("--target-class needs a class-conditional model")
-        if not 0 <= args.target_class < model.num_labels:
+        if classes is None:
+            raise SystemExit("--target-class needs a class-conditional model or a "
+                             "classifier")
+        if not 0 <= args.target_class < classes:
             raise SystemExit(f"--target-class {args.target_class} out of range for a "
-                             f"{model.num_labels}-class model")
+                             f"{classes}-class model")
 
     if args.num_samples is None:
-        sample = sample_batch(args, model, warp, 1, 0, device)
+        sample = sample_batch(args, model, warp, 1, 0, device, classifier)
         write_wav(args.sample_path, sample[0, :, 0].cpu().numpy(), args.encoding)
         print(f"wrote {args.sample_path}")
         return
@@ -114,7 +137,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  for c in range(lo, hi)]
         if all(os.path.exists(p) for p in paths):
             continue
-        samples = sample_batch(args, model, warp, args.batch_size, i, device)
+        samples = sample_batch(args, model, warp, args.batch_size, i, device, classifier)
         for seq, path in zip(samples.cpu().numpy(), paths):
             write_wav(path, seq[:, 0], args.encoding)
         print(f"generated {hi}/{args.num_samples}")
@@ -130,9 +153,12 @@ def arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--constrain", action="store_true")
     parser.add_argument("--sample-path", default="sample.wav", type=str)
     parser.add_argument("--num-samples", default=None, type=int)
+    parser.add_argument("--classifier-path", default=None, type=str,
+                        help="ClassifierModel checkpoint guiding every step")
+    parser.add_argument("--classifier-scale", default=1.0, type=float)
     parser.add_argument("--target-class", default=None, type=int,
-                        help="class of every sample (class-conditional models); "
-                             "random per sample when unset")
+                        help="class of every sample (class-conditional models, or "
+                             "the classifier's classes); random per sample when unset")
     parser.add_argument("--schedule", default="linear", type=str,
                         help="named time warp: linear|quadratic|sqrt|pow:X")
     parser.add_argument("--encoding", default="linear", type=str)

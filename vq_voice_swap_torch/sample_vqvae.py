@@ -3,12 +3,15 @@ speaker.
 
 Reads up to --seconds of a .wav, encodes it to VQ codes (or raw encoder
 output with --no-vq), decodes with --label and the x0 constraint, and
-optionally reports how many codes survive a re-encode (--check-vq). Runs on
-CUDA unless --device names another device.
+optionally reports how many codes survive a re-encode (--check-vq).
+--enc-pred-path guides the decoder with an encoder predictor's gradient,
+scaled by --enc-pred-scale. Runs on CUDA unless --device names another
+device.
 
 Example:
     python -m vq_voice_swap_torch.sample_vqvae --label 3 --sample-steps 10 \
-        --sampler dpmpp --input-file speech.wav model.npz converted.wav
+        --sampler dpmpp --enc-pred-path enc_pred.npz --input-file speech.wav \
+        model.npz converted.wav
 """
 
 import argparse
@@ -17,13 +20,16 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .classifier_model import EncoderPredictorModel
 from .data import ChunkWriter, read_audio_input
 from .util import resolve_device
 from .vq_vae import VQVAE
 
 
-def convert(args, model: VQVAE, in_seq: torch.Tensor, generator: torch.Generator):
-    """Encode -> decode with the target label; returns (audio, codes)."""
+def convert(args, model: VQVAE, in_seq: torch.Tensor, generator: torch.Generator,
+            enc_pred: Optional[EncoderPredictorModel] = None):
+    """Encode -> decode with the target label, guided by ``enc_pred`` when
+    given; returns (audio, codes)."""
     encoded = model.encode_raw(in_seq) if args.no_vq else model.encode(in_seq)
     labels = (
         torch.tensor([args.label], dtype=torch.long, device=in_seq.device)
@@ -38,6 +44,8 @@ def convert(args, model: VQVAE, in_seq: torch.Tensor, generator: torch.Generator
         sampler=args.sampler,
         eta=args.eta,
         generator=generator,
+        enc_pred=enc_pred,
+        enc_pred_scale=args.enc_pred_scale,
     )
     return audio, encoded
 
@@ -53,6 +61,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     model = VQVAE.load(args.checkpoint_path, device=device)
     if model.num_labels is not None and not 0 <= args.label < model.num_labels:
         raise SystemExit(f"label {args.label} out of range [0, {model.num_labels})")
+    enc_pred = None
+    if args.enc_pred_path:
+        print("loading encoder predictor...")
+        enc_pred = EncoderPredictorModel.load(args.enc_pred_path, device=device)
 
     print(f"loading waveform from {args.input_file}...")
     chunk = read_audio_input(
@@ -62,7 +74,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     print("encoding and decoding...")
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    sample, encoded = convert(args, model, in_seq, generator)
+    sample, encoded = convert(args, model, in_seq, generator, enc_pred)
 
     if args.check_vq:
         agreement = (model.encode(sample) == encoded).float().mean().item()
@@ -88,6 +100,9 @@ def arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--label", type=int, required=True)
     parser.add_argument("--input-file", type=str, required=True)
     parser.add_argument("--encoding", type=str, default="linear")
+    parser.add_argument("--enc-pred-path", type=str, default=None,
+                        help="EncoderPredictorModel checkpoint guiding the decoder")
+    parser.add_argument("--enc-pred-scale", type=float, default=1.0)
     parser.add_argument("--no-vq", action="store_true")
     parser.add_argument("--check-vq", action="store_true")
     parser.add_argument("--seed", type=int, default=0)

@@ -1,13 +1,15 @@
 """VQ-VAE with a diffusion decoder, for speaker conversion (counterpart of
 ``vq_voice_swap_tpu/vq_vae.py``: encode, embed, and decode with the DDPM,
-DDIM and DPM++ samplers; classifier-free and encoder-predictor guidance
-and the training losses come in later slices)."""
+DDIM and DPM++ samplers, with encoder-predictor guidance or classifier-free
+guidance; the training losses come in a later slice)."""
 
 import math
 from typing import Any, Dict, Optional
 
 import torch
 
+from .diffusion.process import CondFn, PredictorFn
+from .diffusion.warp import TimeWarp
 from .diffusion_model import DiffusionModel
 from .model_base import register_model
 from .models import make_encoder
@@ -74,6 +76,38 @@ class VQVAE(DiffusionModel):
         """[N, T1] int codes -> [N, T1, C] codebook embeddings."""
         return self.vq.dictionary[codes]
 
+    def _cond_seq(self, codes: torch.Tensor) -> torch.Tensor:
+        """[N, T1] int codes -> their embeddings; [N, T1, C] passes as is."""
+        if codes.ndim == 2:
+            return self.embed_codes(codes)
+        if codes.ndim == 3:
+            return codes
+        raise ValueError(f"unsupported codes shape: {tuple(codes.shape)}")
+
+    def _x_T(self, cond_seq: torch.Tensor, x_T: Optional[torch.Tensor],
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        if x_T is not None:
+            return x_T
+        x_len = cond_seq.shape[1] * self.encoder.downsample_rate
+        return torch.randn(
+            (cond_seq.shape[0], x_len, 1), generator=generator,
+            dtype=torch.float32, device=cond_seq.device,
+        )
+
+    def _sample(self, x_T: torch.Tensor, pred_fn: PredictorFn, steps: int, sampler: str,
+                eta: float, constrain: bool, generator: Optional[torch.Generator],
+                warp: Optional[TimeWarp] = None,
+                cond_fn: Optional[CondFn] = None) -> torch.Tensor:
+        kw = dict(constrain=constrain, warp=warp, cond_fn=cond_fn)
+        if sampler == "ddim":
+            return self.diffusion.ddim_sample(x_T, pred_fn, steps, generator=generator,
+                                              eta=eta, **kw)
+        if sampler == "dpmpp":
+            return self.diffusion.dpmpp_sample(x_T, pred_fn, steps, **kw)
+        if sampler != "ddpm":
+            raise ValueError(f"unknown sampler {sampler!r}")
+        return self.diffusion.ddpm_sample(x_T, pred_fn, steps, generator=generator, **kw)
+
     def decode(
         self,
         codes: torch.Tensor,
@@ -84,38 +118,75 @@ class VQVAE(DiffusionModel):
         eta: float = 0.0,
         x_T: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        enc_pred=None,
+        enc_pred_scale: float = 1.0,
     ) -> torch.Tensor:
         """Sample audio [N, T, 1] for codes ([N, T1] ints, or [N, T1, C]
         embeddings as --no-vq passes them) and labels. ``x_T`` is the
         starting noise; when omitted it is drawn from ``generator``, as is
-        every later draw of the DDPM (and DDIM eta > 0) sampler."""
-        if codes.ndim == 2:
-            cond_seq = self.embed_codes(codes)
-        elif codes.ndim == 3:
-            cond_seq = codes
-        else:
-            raise ValueError(f"unsupported codes shape: {tuple(codes.shape)}")
-        if x_T is None:
-            x_len = cond_seq.shape[1] * self.encoder.downsample_rate
-            x_T = torch.randn(
-                (cond_seq.shape[0], x_len, 1), generator=generator,
-                dtype=torch.float32, device=cond_seq.device,
-            )
+        every later draw of the DDPM (and DDIM eta > 0) sampler.
+
+        ``enc_pred`` (an ``EncoderPredictorModel``) guides the sampler
+        towards audio whose predicted codes are the nearest codes of the
+        conditioning sequence: cond_fn = -enc_pred_scale * the gradient of
+        its summed cross-entropy with respect to x."""
+        cond_seq = self._cond_seq(codes)
+        x_T = self._x_T(cond_seq, x_T, generator)
+        cond_fn = None
+        if enc_pred is not None:
+            targets = vq_forward(self.vq.dictionary, cond_seq)["idxs"]
+            cond_fn = enc_pred.cond_fn(targets, enc_pred_scale)
 
         def pred_fn(xs, ts):
             return self.predict_eps(xs, ts, cond=cond_seq, labels=labels)
 
-        if sampler == "ddim":
-            return self.diffusion.ddim_sample(
-                x_T, pred_fn, steps, generator=generator, eta=eta,
-                constrain=constrain,
-            )
-        if sampler == "dpmpp":
-            return self.diffusion.dpmpp_sample(
-                x_T, pred_fn, steps, constrain=constrain
-            )
-        if sampler != "ddpm":
-            raise ValueError(f"unknown sampler {sampler!r}")
-        return self.diffusion.ddpm_sample(
-            x_T, pred_fn, steps, generator=generator, constrain=constrain
-        )
+        return self._sample(x_T, pred_fn, steps, sampler, eta, constrain, generator,
+                            cond_fn=cond_fn)
+
+    def decode_uncond_guidance(
+        self,
+        codes: torch.Tensor,
+        labels: Optional[torch.Tensor] = None,
+        steps: int = 100,
+        constrain: bool = False,
+        label_scale: float = 0.0,
+        vq_scale: float = 0.0,
+        sampler: str = "ddpm",
+        eta: float = 0.0,
+        x_T: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        warp: Optional[TimeWarp] = None,
+    ) -> torch.Tensor:
+        """Classifier-free guidance for models fine-tuned with an
+        unconditional label (0) and zeroed codes: one predictor call on a
+        k-stacked batch (the conditional prediction, then one without the
+        codes when ``vq_scale``, then one without the label when
+        ``label_scale``), combined as base + scale * (base - other) for
+        each. ``labels`` are raw; the stack offsets them by 1."""
+        cond_seq = self._cond_seq(codes)
+        n = cond_seq.shape[0]
+        x_T = self._x_T(cond_seq, x_T, generator)
+
+        cond_batches = [cond_seq]
+        label_batches = [labels + 1] if labels is not None else None
+        if vq_scale:
+            cond_batches.append(torch.zeros_like(cond_seq))
+            if label_batches is not None:
+                label_batches.append(labels + 1)
+        if labels is not None and label_scale:
+            cond_batches.append(cond_seq)
+            label_batches.append(torch.zeros_like(labels))
+        k = len(cond_batches)
+        cond_all = torch.cat(cond_batches, dim=0)
+        labels_all = torch.cat(label_batches, dim=0) if label_batches is not None else None
+        scales = [s for s in (vq_scale, label_scale if labels is not None else 0.0) if s]
+
+        def pred_fn(xs, ts):
+            outs = self.predict_eps(torch.cat([xs] * k, dim=0), torch.cat([ts] * k, dim=0),
+                                    cond=cond_all, labels=labels_all)
+            base = pred = outs[:n]
+            for i, scale in enumerate(scales, 1):
+                pred = pred + scale * (base - outs[i * n:(i + 1) * n])
+            return pred
+
+        return self._sample(x_T, pred_fn, steps, sampler, eta, constrain, generator, warp)
