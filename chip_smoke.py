@@ -28,16 +28,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    statistics alone in f32 and bf16, VQ at B=3200 and B=200. The
    statistics and VQ wrappers, and their library calls, are also timed
    eagerly (back-to-back calls, host dispatch included), with the host's
-   time per call. The GroupNorm backward (CUDA: statistics, reduce, dx) against
+   time per call. The GroupNorm backward (CUDA; the route of bwd_route,
+   printed with its cluster size and memory passes: one cluster launch per
+   (n, group), or reduce + dx beyond a cluster's capacity) against
    group_norm_backward_plain at the guidance networks' largest shape
-   [16, 32, 64000], at the guided CLIs' [1, 32, 64000] and [2, 32, 64000]
-   (each row's reduce split over several blocks and merged by the row's
-   last block) and at [3, 20, 333] (odd T, 5 channels a group), f32 and
-   bf16, with and without FiLM and GELU (dx within 1e-4 / 2e-2 of max(|dx|,
-   1), S1 and S2 within 1e-4 of their largest), twice for the same bits;
-   the kernel (reduce + dx) timed at [16, 32, 64000] and [1, 32, 64000]
-   beside its bound (x and dy read, dx written), the wrapper (with its
-   statistics launch), its plain version and
+   [16, 32, 64000], at the guided CLIs' [1, 32, 64000] and [2, 32, 64000],
+   at unet64's first level [16, 64, 64000] (two channels a group), at
+   [3, 20, 333] (odd T, 5 channels a group) and at [1, 128, 128000] (a
+   unet64 first-level span at 8 s: the two-kernel route), f32 and bf16,
+   with and without FiLM and GELU (dx within 1e-4 / 2e-2 of max(|dx|, 1),
+   S1 and S2 within 1e-4 of their largest), from the forward's saved
+   statistics and again from recomputed ones for the same bits; the kernel
+   timed at [16, 32, 64000] and [1, 32, 64000] beside its bound (x and dy
+   read, dx written), the standalone wrapper (with a statistics launch),
+   the two-kernel route at the same shape, its plain version and
    torch.ops.aten.native_group_norm_backward (no FiLM, no GELU). Every ticket
    counter (ops/tickets.py) is 0 after this phase and after the last.
 3. Main paths, each with every launch count set to 0 just before it and
@@ -60,9 +64,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    unconditional sampling (``sample_diffusion --classifier-path``, a
    251-label ClassifierModel at base 32, in bf16 at --fuse-levels 2) and
    classifier-free guidance (``sample_vqvae_uncond``); asserts one GroupNorm
-   backward (a statistics launch, then the reduce and dx launches) per
-   guidance-network GroupNorm per step (131 and 55) and the forward launch
-   counts.
+   backward launch (the cluster route, from the statistics the forward
+   saved) per guidance-network GroupNorm per step (131 and 55), no
+   statistics relaunch, and the forward launch counts.
 4. Serving time: encode + 10-step DPM++ decode of 16 clips in f32 (TF32
    convolutions, PyTorch's default) and bf16, a torch.profiler breakdown
    of one predictor call by kernel class with its kernel launch count; a
@@ -266,28 +270,36 @@ def check_group_norm(dev, gen):
 
 
 def check_group_norm_backward(dev, gen):
-    """The backward kernels vs group_norm_backward_plain; returns the JSON
-    entry (f32 at the largest guidance-network shape, no FiLM, no GELU: the
-    function native_group_norm_backward computes)."""
-    # The guided CLIs' batches 1 (enc-pred) and 2 (classifier) have few
-    # rows, so each row's reduce is split over several blocks whose partial
-    # sums the row's last block merges; the serving batch has one block a row.
-    cases = [((BATCH, 32, SAMPLES), 32, False), ((1, 32, SAMPLES), 32, True),
-             ((2, 32, SAMPLES), 32, True), ((3, 20, 333), 4, False)]
+    """The backward kernel, by the route bwd_route takes, vs
+    group_norm_backward_plain; returns the JSON entry (f32 at the largest
+    guidance-network shape, no FiLM, no GELU: the function
+    native_group_norm_backward computes)."""
+    # (shape, groups, route): the guidance networks' largest shape at the
+    # serving batch, the guided CLIs' batches 1 (enc-pred) and 2
+    # (classifier), unet64's first level (two channels a group), an odd T
+    # with 5 channels a group, and a unet64 first-level span at 8 s, beyond
+    # a cluster's capacity.
+    cases = [((BATCH, 32, SAMPLES), 32, "cluster"), ((1, 32, SAMPLES), 32, "cluster"),
+             ((2, 32, SAMPLES), 32, "cluster"), ((BATCH, 64, SAMPLES), 32, "cluster"),
+             ((3, 20, 333), 4, "cluster"), ((1, 128, 2 * SAMPLES), 32, "two_kernel")]
     err = 0.0
-    for shape, groups, split in cases:
+    for shape, groups, want_route in cases:
         n, c, _ = shape
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
             dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            slices = gn.bwd_slices(x)[0]
-            assert (slices > 1) == split, (shape, slices)
+            route = gn.bwd_route(x, groups)
+            assert route.name == want_route, (shape, route)
+            passes = 3 if route.name == "cluster" else 5
             w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
             b = 0.2 * torch.randn(c, generator=gen, device=dev)
             proj = (0.5 * torch.randn(n, 2 * c, generator=gen, device=dev)).to(dtype)
             for film in (None, tuple(proj.chunk(2, dim=-1))):
+                # The forward's statistics, as GroupNormFunction saves them.
+                stats = gn.group_norm_coeffs(x, groups, w, b, 1e-5, film, stats=True)[3:]
                 for use_gelu in (False, True):
-                    got = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, film)
+                    got = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, film,
+                                                 stats)
                     again = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, film)
                     want = gn.group_norm_backward_plain(x, dy, groups, w, b, 1e-5, use_gelu,
                                                         film)
@@ -297,10 +309,12 @@ def check_group_norm_backward(dev, gen):
                               for g, v in zip(got[1:], want[1:]))
                     same_bits = all(torch.equal(u, v) for u, v in zip(got, again))
                     print(f"groupnorm backward {list(shape)} {str(dtype)[6:]} "
-                          f"film={film is not None} gelu={use_gelu}, {slices} reduce "
-                          f"block(s) a row: dx err {e_dx:.3g} "
+                          f"film={film is not None} gelu={use_gelu}: route {route.name}, "
+                          f"{route.blocks} block(s) a {'span' if passes == 3 else 'row'} of "
+                          f"{route.chunk} elements each, {passes} passes: dx err {e_dx:.3g} "
                           f"(limit {tol}), S1/S2 err {e_s:.3g} of their largest (limit "
-                          f"1e-4), same bits twice {same_bits}")
+                          f"1e-4), same bits twice (saved and recomputed statistics) "
+                          f"{same_bits}")
                     assert e_dx <= tol and e_s <= 1e-4 and same_bits, (shape, dtype)
                     if dtype == torch.float32:
                         err = max(err, (got[0] - want[0]).abs().max().item())
@@ -309,10 +323,11 @@ def check_group_norm_backward(dev, gen):
     torch.cuda.empty_cache()
 
     # Timing at [16, 32, 64000] (x and dy, 131-262 MB each, exceed L2) and
-    # at the enc-pred CLI's [1, 32, 64000] (16 reduce blocks a row). The
-    # kernel's own time is its two launches (reduce, dx) from given (mean,
-    # var), as native_group_norm_backward takes (mean, rstd); the wrapper
-    # adds the statistics launch.
+    # at the enc-pred CLI's [1, 32, 64000]. The kernel's own time is its
+    # launch from the forward's (mean, var), as the guided paths call it and
+    # as native_group_norm_backward takes (mean, rstd); the standalone
+    # wrapper adds a statistics launch; the two-kernel route is timed at the
+    # same shape, and with a statistics launch before it, the parent design.
     entry = None
     for n, dtype in ((BATCH, torch.float32), (BATCH, torch.bfloat16), (1, torch.float32)):
         c, t, groups = 32, SAMPLES, 32
@@ -325,12 +340,16 @@ def check_group_norm_backward(dev, gen):
         wl, bl = w.to(dtype), b.to(dtype)
         _, mean, rstd = torch.ops.aten.native_group_norm(x, wl, bl, n, c, t, groups, 1e-5)
         mean_g, var_g = gn.group_norm_stats(x, groups)
+        route = gn.bwd_route(x, groups)
+        two = gn.BwdRoute("two_kernel", *gn.bwd_slices(x))
         times = {}
         for label, f, g in (("plain", None, False), ("film+gelu", film, True)):
             times[label] = (
                 cuda_ms(lambda: gn._launch_bwd(x, dy, groups, mean_g, var_g, w, b, 1e-5, g, f),
                         20),
                 cuda_ms(lambda: gn.group_norm_backward(x, dy, groups, w, b, 1e-5, g, f), 20),
+                cuda_ms(lambda: gn._launch_bwd(x, dy, groups, mean_g, var_g, w, b, 1e-5, g, f,
+                                               two), 20),
                 cuda_ms(lambda: gn.group_norm_backward_plain(x, dy, groups, w, b, 1e-5, g, f),
                         5),
             )
@@ -339,26 +358,32 @@ def check_group_norm_backward(dev, gen):
             dy, x, mean, rstd, wl, n, c, t, groups, [True, False, False]), 20)
         x_bytes = x.numel() * x.element_size()
         # Bound: x and dy read once, dx written once; ~15 flops an element
-        # without GELU, ~60 with GELU' recomputed in both kernels.
+        # without GELU, ~40 with GELU' (erf and exp) once an element.
         bnd, by = bound_ms(3 * x_bytes, 15 * x.numel())
-        bnd_g, _ = bound_ms(3 * x_bytes, 60 * x.numel())
-        (ms, wrap, plain), (ms_g, wrap_g, plain_g) = times["plain"], times["film+gelu"]
-        print(f"groupnorm backward timing {[n, c, t]} {str(dtype)[6:]}, "
-              f"{gn.bwd_slices(x)[0]} reduce block(s) a row: no FiLM, no GELU: kernel "
-              f"(reduce + dx) {ms:.4f} ms ({100 * bnd / ms:.1f}% of its bound {bnd:.4f} by "
-              f"{by}; native_group_norm_backward (dx) {lib:.4f}; plain {plain:.4f}), wrapper "
-              f"with the (mean, var) statistics launch {wrap:.4f} ms; FiLM + GELU: kernel "
-              f"{ms_g:.4f} ms (bound {bnd_g:.4f}, plain {plain_g:.4f}), wrapper {wrap_g:.4f} "
-              f"ms; the statistics launch alone {stats_ms:.4f} ms. Design: the kernel reads "
-              f"x and dy twice (reduce, dx) and writes dx once, 5 passes against the "
-              f"bound's 3; the wrapper's statistics launch reads x a third time")
+        bnd_g, _ = bound_ms(3 * x_bytes, 40 * x.numel())
+        (ms, wrap, two_ms, plain), (ms_g, wrap_g, two_g, plain_g) = (times["plain"],
+                                                                     times["film+gelu"])
+        print(f"groupnorm backward timing {[n, c, t]} {str(dtype)[6:]}, route {route.name} "
+              f"({route.blocks} blocks a cluster, {route.chunk} elements a block): no FiLM, "
+              f"no GELU: kernel {ms:.4f} ms from the forward's statistics "
+              f"({100 * bnd / ms:.1f}% of its bound {bnd:.4f} by {by}; "
+              f"native_group_norm_backward (dx) {lib:.4f}, {lib / ms:.2f}x; plain "
+              f"{plain:.4f}), standalone wrapper with a statistics launch {wrap:.4f} ms, "
+              f"two-kernel route {two_ms:.4f} ms ({two_ms + stats_ms:.4f} with the "
+              f"statistics launch, the earlier design); FiLM + GELU: kernel {ms_g:.4f} ms "
+              f"({100 * bnd_g / ms_g:.1f}% of its bound {bnd_g:.4f}, plain {plain_g:.4f}), "
+              f"standalone wrapper {wrap_g:.4f} ms, two-kernel route {two_g:.4f} ms; the "
+              f"statistics launch alone {stats_ms:.4f} ms. Passes: cluster 3 (x and dy "
+              f"read once, dx written once), two-kernel 5")
         if entry is None:
             entry = dict(name="group_norm_backward", route="cuda",
                          source="vq_voice_swap_torch/csrc/group_norm_bwd.cu",
                          replaces="vq_voice_swap_tpu/ops/fused_norm.py:280 (_fgn_bwd; no "
                                   "Pallas kernel)",
                          launches=0, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                         bound_by=by, library_ms=lib, wrapper_ms=wrap, passes=5)
+                         bound_by=by, library_ms=lib, wrapper_ms=wrap, passes=3,
+                         cluster_blocks=route.blocks, film_gelu_ms=ms_g,
+                         two_kernel_ms=two_ms, two_kernel_passes=5)
         del x, dy, mean, rstd, mean_g, var_g
     torch.cuda.empty_cache()
     return entry
@@ -600,7 +625,8 @@ def write_wav(path: str, samples: np.ndarray) -> None:
 
 # Each kernel's wrappers; the statistics kernel has two entry points.
 COUNTED = (vqa.vq_assign, gn.group_norm_coeffs, gn.group_norm_stats, gn.group_norm_apply,
-           gn.group_norm_backward, frb.fused_resblock_stats, frb.fused_resblock_apply)
+           gn.group_norm_backward, gn._bwd_cluster, gn._bwd_two_kernel,
+           frb.fused_resblock_stats, frb.fused_resblock_apply)
 KERNEL_WRAPPERS = {"group_norm_stats": ("group_norm_coeffs", "group_norm_stats")}
 
 
@@ -788,10 +814,10 @@ def guided_paths(dev, workdir: str, ckpt: str, uncond_ckpt: str, ep_ckpt: str,
     assert frames == SAMPLES and np.abs(data).max() > 0
     # Encode, the guidance targets, the --check-vq re-encode.
     assert counts["vq_assign"] == 3
-    # Each GroupNorm's backward: a statistics launch (for rstd), then the
-    # reduce and dx launches of the backward kernel.
-    assert counts["group_norm_backward"] == 2 * GN_PER_PREDICTOR * steps
-    assert counts["group_norm_stats"] == GN_PER_PREDICTOR * steps
+    # Each GroupNorm's backward: one cluster launch from the statistics its
+    # forward saved; no statistics relaunch.
+    assert counts["group_norm_backward"] == counts["_bwd_cluster"] == GN_PER_PREDICTOR * steps
+    assert counts["group_norm_stats"] == counts["_bwd_two_kernel"] == 0
     assert counts["group_norm_coeffs"] == counts["group_norm_apply"] == \
         2 * GN_PER_PREDICTOR * steps
     assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == 0
@@ -809,7 +835,8 @@ def guided_paths(dev, workdir: str, ckpt: str, uncond_ckpt: str, ep_ckpt: str,
     unfused_gn = (GN_PER_PREDICTOR - 2 * FUSED_PER_PREDICTOR) * steps
     clf_gn = GN_PER_CLASSIFIER * steps
     assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == fused
-    assert counts["group_norm_backward"] == 2 * counts["group_norm_stats"] == 2 * clf_gn
+    assert counts["group_norm_backward"] == counts["_bwd_cluster"] == clf_gn
+    assert counts["group_norm_stats"] == counts["_bwd_two_kernel"] == 0
     assert counts["group_norm_apply"] == unfused_gn + clf_gn
     assert counts["group_norm_coeffs"] == (unfused_gn + fused + TWO_INPUT_PER_PREDICTOR * steps
                                            + clf_gn)
@@ -880,7 +907,7 @@ def _kernel_class(name: str) -> str:
     if "group_norm_stats_kernel" in name:
         return "groupnorm stats + fold (CUDA)"
     if "group_norm_bwd_" in name:
-        return "groupnorm backward reduce + dx (CUDA)"
+        return "groupnorm backward (CUDA)"
     if name.startswith("apply_kernel"):
         return "groupnorm apply (Triton)"
     if "vq_assign_kernel" in name:
@@ -951,7 +978,7 @@ def group_norm_glue(model: VQVAE, dev, name: str) -> None:
     fold: its device launches and device time, counted by torch.profiler on
     one call for the largest fused block, and its host dispatch time, each
     scaled by the fused blocks of one predictor call at fuse_levels=2."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from vq_voice_swap_torch.models.layers import GroupNorm
 
@@ -965,9 +992,14 @@ def group_norm_glue(model: VQVAE, dev, name: str) -> None:
     for f in (None, film):
         gn.group_norm(x, w, b, groups, 1e-5, True, f)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            gn.group_norm(x, w, b, groups, 1e-5, True, f)
-            torch.cuda.synchronize()
+        # One call in a warm-up step, then one recorded: the profiler can
+        # miss a launch at the very start of its window.
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                gn.group_norm(x, w, b, groups, 1e-5, True, f)
+                torch.cuda.synchronize()
+                prof.step()
         names = sorted(_kernel_class(e.key) for e in _device_kernels(prof)
                        for _ in range(e.count))
         assert names == ["groupnorm apply (Triton)", "groupnorm stats + fold (CUDA)"], names
@@ -1158,7 +1190,7 @@ def main() -> int:
         guided = guided_paths(dev, workdir, ckpt, uncond_ckpt, ep_ckpt, clf_ckpt)
         for k in kernels:
             if k["name"] == "group_norm_backward":  # the two differentiating paths
-                k["launches"] = sum(c["group_norm_backward"] for c in guided.values())
+                k["launches"] = sum(c["_bwd_cluster"] for c in guided.values())
                 continue
             path = sampling_launches if k["name"].startswith("fused") else swap_launches
             k["launches"] = sum(path[w] for w in KERNEL_WRAPPERS.get(k["name"], (k["name"],)))

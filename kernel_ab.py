@@ -3,7 +3,10 @@
 ResBlock entry points in one source tree, under two timers, so that two
 versions can be compared in one call on one card:
 
-    python3 kernel_ab.py [TREE]    # TREE: the root of a checkout (default: here)
+    python3 kernel_ab.py [TREE] [--only SECTION]
+
+TREE is the root of a checkout (default: here); SECTION one of vq,
+groupnorm, backward, resblock (default: all).
 
 To compare a change with its parent, unpack the parent into a directory and
 run parent, change, change, parent in one command. Each entry point is
@@ -17,7 +20,7 @@ printed beside one PyTorch call that computes the same work, with:
 - host us: the wall time per call in Python and the launch, before the
   device is waited on.
 
-Entry points: VQ assign at B=3200 and B=200 rows against a 512 x 1024
+Entry points (sections): VQ assign at B=3200 and B=200 rows against a 512 x 1024
 codebook (with each code tile the tree's kernel offers), against
 ``addmm`` + ``argmin``; GroupNorm statistics at [16, 64, 64000] in float32
 and bfloat16, against ``var_mean``: the group (mean, var), and the
@@ -28,8 +31,15 @@ statistics folded with the affine and a FiLM into the apply kernel's
 ``fused_resblock_stats``, ``fused_resblock_apply`` (called through the
 tree's own ``_norm_in_affine``, ``_conv_weight`` and ``_norm_mid_affine``)
 and the whole ``fused_resblock``, against the port's unfused ``ResBlock``
-with cuDNN's TF32 off and on (no one PyTorch call computes a ResBlock).
-Exits non-zero without a card.
+with cuDNN's TF32 off and on (no one PyTorch call computes a ResBlock);
+the GroupNorm backward at [16, 32, 64000] in float32 and bfloat16, without
+and with FiLM + GELU: the kernel alone from given group (mean, var)
+(``_launch_bwd``), the wrapper as the guided paths call it (with the
+forward's statistics where the tree saves them; else, as the older tree
+did, after a statistics launch) and the wrapper alone (statistics
+included), against ``native_group_norm_backward`` (dx; no FiLM, no GELU),
+and in a tree with ``bwd_route`` the cluster route at each cluster size
+that fits. Exits non-zero without a card.
 """
 
 import math
@@ -42,6 +52,8 @@ import torch
 
 ITERS = 50
 PAIR_ITERS = 10  # the pair's calls take ~1 ms and a [16, 64, 64000] output each
+BWD_ITERS = 20   # each backward call writes a [16, 32, 64000] dx
+SECTIONS = ("vq", "groupnorm", "backward", "resblock")
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -147,10 +159,58 @@ def time_fused_resblock(label: str, dev, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def time_group_norm_backward(label: str, gn, dev, gen) -> None:
+    """The GroupNorm backward's kernel and wrappers, per dtype and flags."""
+    n, c, t, groups = 16, 32, 64000, 32
+    w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    b = 0.2 * torch.randn(c, generator=gen, device=dev)
+    proj = 0.5 * torch.randn(n, 2 * c, generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, c, t), generator=gen, device=dev).to(dtype)
+        dy = torch.randn((n, c, t), generator=gen, device=dev).to(dtype)
+        film = tuple(proj.to(dtype).chunk(2, dim=-1))
+        mean, var = gn.group_norm_stats(x, groups)
+        name = f"{label} groupnorm backward [{n}, {c}, {t}] {str(dtype)[6:]}"
+        wl, bl = w.to(dtype), b.to(dtype)
+        _, mu, rstd = torch.ops.aten.native_group_norm(x, wl, bl, n, c, t, groups, 1e-5)
+        lib = timings(lambda: torch.ops.aten.native_group_norm_backward(
+            dy, x, mu, rstd, wl, n, c, t, groups, [True, False, False]), BWD_ITERS)
+        print(f"{name} native_group_norm_backward (dx): {lib}")
+        saves = hasattr(gn, "bwd_route")
+        for flags, f, g in (("no FiLM/GELU", None, False), ("FiLM + GELU", film, True)):
+            kernel = timings(lambda: gn._launch_bwd(x, dy, groups, mean, var, w, b, 1e-5, g, f),
+                             BWD_ITERS)
+            alone = timings(lambda: gn.group_norm_backward(x, dy, groups, w, b, 1e-5, g, f),
+                            BWD_ITERS)
+            print(f"{name} {flags} kernel alone: {kernel}")
+            print(f"{name} {flags} wrapper with its statistics launch: {alone}")
+            if not saves:
+                continue
+            route = gn.bwd_route(x, groups)
+            print(f"{name} {flags} wrapper from the forward's statistics ({route}): "
+                  + timings(lambda: gn.group_norm_backward(x, dy, groups, w, b, 1e-5, g, f,
+                                                           (mean, var)), BWD_ITERS))
+            span = t * c // groups
+            for k in (4, 8, 16):
+                per_block = -(-span // k)
+                chunk = -(-per_block // 8) * 8
+                r = gn.BwdRoute("cluster", k, chunk)
+                print(f"{name} {flags} cluster of {k} ({chunk} elements a block): " + timings(
+                    lambda: gn._launch_bwd(x, dy, groups, mean, var, w, b, 1e-5, g, f, r),
+                    BWD_ITERS))
+        del x, dy
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
+    only = SECTIONS
+    if "--only" in argv:
+        i = argv.index("--only")
+        only = tuple(argv[i + 1].split(","))
+        argv = argv[:i] + argv[i + 2:]
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, tree)
     from vq_voice_swap_torch.ops import cuda_build
@@ -174,7 +234,7 @@ def main(argv) -> int:
     dn = torch.sum(d * d, dim=-1)
     tiles = getattr(vqa, "BLOCK_CODES", None)
     tiles = [None, *tiles] if isinstance(tiles, tuple) else [None]
-    for b in (3200, 200):
+    for b in (3200, 200) if "vq" in only else ():
         x = torch.randn(b, 1024, generator=gen, device=dev)
         lib = timings(lambda: torch.argmin(torch.addmm(dn, x, d.t(), alpha=-2.0), dim=1))
         print(f"{label} vq B={b} addmm+argmin: {lib}")
@@ -189,7 +249,7 @@ def main(argv) -> int:
     w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
     bias = 0.2 * torch.randn(c, generator=gen, device=dev)
     film = (0.5 * torch.randn(n, 2 * c, generator=gen, device=dev)).chunk(2, dim=-1)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16) if "groupnorm" in only else ():
         x = torch.randn((n, c, t), generator=gen, device=dev).to(dtype)
         f = tuple(v.to(dtype) for v in film)
         name = f"{label} groupnorm [{n}, {c}, {t}] {str(dtype)[6:]}"
@@ -204,7 +264,10 @@ def main(argv) -> int:
                                                     bias, 1e-5, f))
         print(f"{name} statistics to (mean, a, b) with FiLM: {coeffs}")
         del x
-    time_fused_resblock(label, dev, gen)
+    if "backward" in only:
+        time_group_norm_backward(label, gn, dev, gen)
+    if "resblock" in only:
+        time_fused_resblock(label, dev, gen)
     return 0
 
 

@@ -3,14 +3,19 @@ group_norm.py) on the CPU: ``group_norm_backward_plain`` and
 ``group_norm_param_grads`` against torch autograd of the plain forward and
 against ``jax.vjp`` of the JAX package's ``reference_group_norm`` followed
 by the FiLM and GELU of its ResBlock, ``GroupNormFunction``'s wiring of
-the gradients, and the fused ResBlock's refusal to run under grad. The
-CUDA kernel is held against the plain version on the card
-(tests/test_torch_kernels_cuda.py, chip_smoke.py).
+the gradients and of the group statistics its forward saves, the
+backward's route (``bwd_route``) at the models' shapes, and the fused
+ResBlock's refusal to run under grad. The CUDA kernels are held against
+the plain version on the card (tests/test_torch_kernels_cuda.py,
+chip_smoke.py).
 
 Inputs are made with numpy from a seed; [2, 12, 37] in 4 groups (3
-channels a group, an odd T). Float32 throughout; tolerance 1e-5, the
-rounding of sums over 111 values in two orders.
+channels a group, an odd T). Float32 throughout unless a test says
+otherwise; tolerance 1e-5, the rounding of sums over 111 values in two
+orders.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +24,9 @@ import pytest
 import torch
 
 from vq_voice_swap_tpu.ops.fused_norm import reference_group_norm
+from vq_voice_swap_torch.classifier_model import ClassifierModel, EncoderPredictorModel
+from vq_voice_swap_torch.diffusion_model import DiffusionModel
+from vq_voice_swap_torch.models import layers
 from vq_voice_swap_torch.models.layers import ResBlock
 from vq_voice_swap_torch.ops import fused_resblock as frb
 from vq_voice_swap_torch.ops import group_norm as gn
@@ -134,6 +142,143 @@ def test_function_gradients_match_autograd_of_plain(needs):
             assert got.grad is None
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_backward_with_given_stats_same_bits(dtype):
+    """Given the group (mean, var) it would compute, the plain backward
+    returns the same bits as without them, FiLM and GELU on."""
+    x, w, b, f, dy = _case(4, True)
+    tx, tdy = (torch.from_numpy(a).to(dtype) for a in (x, dy))
+    tw, tb = _torch((w, b))
+    tf = tuple(v.to(dtype) for v in _torch(f))
+    stats = gn.group_stats_plain(tx, GROUPS)
+    got = gn.group_norm_backward_plain(tx, tdy, GROUPS, tw, tb, EPS, True, tf, stats)
+    want = gn.group_norm_backward_plain(tx, tdy, GROUPS, tw, tb, EPS, True, tf)
+    for g, v in zip(got, want):
+        assert g.dtype == v.dtype and torch.equal(g, v)
+    again = gn.group_norm_backward(tx, tdy, GROUPS, tw, tb, EPS, True, tf, stats)
+    for g, v in zip(again, want):
+        assert torch.equal(g, v)
+
+
+def test_coeffs_return_group_stats():
+    """``group_norm_coeffs(..., stats=True)`` adds the group (mean, var) of
+    ``group_stats_plain`` after the unchanged coefficients."""
+    x, w, b, f, _ = _case(5, True)
+    tx, tw, tb = _torch((x, w, b))
+    tf = tuple(_torch(f))
+    coeffs = gn.group_norm_coeffs(tx, GROUPS, tw, tb, EPS, tf)
+    mean_c, a, bb, mean, var = gn.group_norm_coeffs(tx, GROUPS, tw, tb, EPS, tf, stats=True)
+    for g, v in zip((mean_c, a, bb), coeffs):
+        assert torch.equal(g, v)
+    for g, v in zip((mean, var), gn.group_stats_plain(tx, GROUPS)):
+        assert g.shape == (SHAPE[0], GROUPS) and torch.equal(g, v)
+
+
+@pytest.mark.parametrize("film", [False, True])
+def test_function_saves_group_stats(film):
+    """GroupNormFunction's forward saves the group (mean, var) of
+    ``group_stats_plain`` (the statistics its backward takes instead of
+    recomputing them); its gradients, 3 channels a group, are autograd's
+    through the plain forward."""
+    x, w, b, f, dy = _case(6, film)
+    tx, tw, tb = _torch((x, w, b), requires_grad=True)
+    tf = None if f is None else tuple(_torch(f, requires_grad=True))
+    y = gn.GroupNormFunction.apply(tx, tw, tb, *(tf or (None, None)), GROUPS, EPS, True)
+    mean, var = y.grad_fn.saved_tensors[-2:]
+    for g, v in zip((mean, var), gn.group_stats_plain(tx.detach(), GROUPS)):
+        assert torch.equal(g, v)
+    wrt = [tx, tw, tb, *(tf or ())]
+    got = torch.autograd.grad(y, wrt, torch.from_numpy(dy))
+    px, pw, pb = _torch((x, w, b), requires_grad=True)
+    pf = None if f is None else tuple(_torch(f, requires_grad=True))
+    want_y = gn.group_norm(px, pw, pb, GROUPS, EPS, True, pf)
+    assert torch.equal(y, want_y)
+    want = torch.autograd.grad(want_y, [px, pw, pb, *(pf or ())], torch.from_numpy(dy))
+    for g, v in zip(got, want):
+        torch.testing.assert_close(g, v, **TOL)
+
+
+def test_function_matches_jax_vjp():
+    """dx of GroupNormFunction with FiLM and GELU against jax.vjp of
+    reference_group_norm, then the FiLM and exact GELU of the JAX ResBlock,
+    on the same numpy inputs."""
+    x, w, b, (ca, cb), dy = _case(7, True)
+
+    def forward(xx):
+        y = reference_group_norm(xx, jnp.asarray(w), jnp.asarray(b), GROUPS, EPS, False)
+        y = y * (jnp.asarray(ca)[:, None, :] + 1.0) + jnp.asarray(cb)[:, None, :]
+        return jax.nn.gelu(y, approximate=False)
+
+    _, vjp = jax.vjp(forward, jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 1))))
+    (jdx,) = vjp(jnp.asarray(dy.transpose(0, 2, 1)))
+    tx = torch.tensor(x, requires_grad=True)
+    tw, tb, tca, tcb = _torch((w, b, ca, cb))
+    y = gn.GroupNormFunction.apply(tx, tw, tb, tca, tcb, GROUPS, EPS, True)
+    y.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx).transpose(0, 2, 1), **TOL)
+
+
+# The guidance networks at the JAX package's training defaults, as the
+# guided CLIs load them, and the unet64 predictor of the swap and sampling
+# flagships; batches 1 and 2 (the guided CLIs) and 16 (serving); 4 s at
+# 16 kHz; an H100's 132 SMs.
+ROUTE_MODELS = {
+    "enc_pred unet32": lambda: EncoderPredictorModel(downsample_rate=320, base_channels=32,
+                                                     num_latents=512),
+    "classifier unet32": lambda: ClassifierModel(num_labels=251, base_channels=32),
+    "unet64": lambda: DiffusionModel(pred_name="unet", base_channels=64).predictor,
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _group_norm_shapes(name):
+    """Every GroupNorm's ([C, T], groups) in one 4 s forward of the model,
+    traced on the meta device (shapes only, no arithmetic)."""
+    seen = set()
+
+    def record(x, weight, bias, num_groups, eps, use_gelu, film=None):
+        seen.add((tuple(x.shape[1:]), num_groups))
+        return x
+
+    model = ROUTE_MODELS[name]().to("meta")
+    saved, layers.group_norm = layers.group_norm, record
+    try:
+        with torch.no_grad():
+            model(torch.empty(1, 64000, 1, device="meta"), torch.empty(1, device="meta"))
+    finally:
+        layers.group_norm = saved
+    return sorted(seen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(ROUTE_MODELS))
+def test_bwd_route_takes_the_cluster_at_4_seconds(name, dtype):
+    shapes = _group_norm_shapes(name)
+    assert len(shapes) > 5 and max(c * t // g for (c, t), g in shapes) >= 64000
+    for (c, t), groups in shapes:
+        for n in (1, 2, 16):
+            x = torch.empty((n, c, t), dtype=dtype, device="meta")
+            route = gn.bwd_route(x, groups, sms=132)
+            span = c // groups * t
+            assert route.name == "cluster", (n, c, t, groups, route)
+            assert 1 <= route.blocks <= gn.BWD_CLUSTER_MAX and route.chunk % 8 == 0
+            assert route.blocks * route.chunk >= span > (route.blocks - 1) * route.chunk
+            assert route.chunk <= gn.BWD_BLOCK_ELEMS
+
+
+def test_bwd_route_two_kernels_beyond_the_cluster():
+    """A span beyond 16 blocks of BWD_BLOCK_ELEMS (a unet64's first level,
+    128 channels in 32 groups, at 8 s) takes the reduce + dx route; the
+    largest span that fits takes the cluster."""
+    big = torch.empty((1, 128, 128000), device="meta")
+    route = gn.bwd_route(big, 32, sms=132)
+    assert route.name == "two_kernel"
+    assert (route.blocks, route.chunk) == gn.bwd_slices(big, sms=132)
+    fits = torch.empty((1, 4, gn.BWD_CLUSTER_MAX * gn.BWD_BLOCK_ELEMS // 4), device="meta")
+    assert gn.bwd_route(fits, 1, sms=132) == gn.BwdRoute(
+        "cluster", gn.BWD_CLUSTER_MAX, gn.BWD_BLOCK_ELEMS)
+
+
 def test_backward_checks_its_inputs():
     x, w, b, _, dy = _case(3, False)
     tx, tw, tb, tdy = _torch((x, w, b, dy))
@@ -146,6 +291,11 @@ def test_backward_checks_its_inputs():
                                GROUPS, tw, tb, EPS, True)
     with pytest.raises(ValueError, match="groups"):
         gn.group_norm_backward(tx, tdy, 5, tw, tb, EPS, True)
+    mean, var = gn.group_stats_plain(tx, GROUPS)
+    with pytest.raises(ValueError, match="stats must be"):
+        gn.group_norm_backward(tx, tdy, GROUPS, tw, tb, EPS, True, None, (mean, var[:, :2]))
+    with pytest.raises(ValueError, match="stats must be"):
+        gn.group_norm_backward(tx, tdy, GROUPS, tw, tb, EPS, True, None, (mean.double(), var))
 
 
 def test_fused_resblock_raises_under_grad():

@@ -92,6 +92,26 @@ def test_group_norm_coeffs_kernel_matches_plain(cuda_gen, dtype, shape, groups, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [((1, 64, 64000), 32), ((3, 512, 250), 32),
+                                          ((2, 6, 333), 3)])
+def test_group_norm_coeffs_group_stats_match_stats_kernel(cuda_gen, dtype, shape, groups):
+    """The coefficient launch's group (mean, var), which GroupNormFunction
+    saves for the backward, have the bits of group_norm_stats; asking for
+    them leaves the coefficients' bits as they are."""
+    x, w, b, ab = _coeffs_case(cuda_gen, shape, dtype, True)
+    launches = gn.group_norm_coeffs.launches
+    *coeffs, mean, var = gn.group_norm_coeffs(x, groups, w, b, 1e-5, ab, stats=True)
+    plain = gn.group_norm_coeffs(x, groups, w, b, 1e-5, ab)
+    want = gn.group_norm_stats(x, groups)
+    assert gn.group_norm_coeffs.launches == launches + 2
+    for g, v in zip(coeffs, plain):
+        assert torch.equal(g, v)
+    for g, v in zip((mean, var), want):
+        assert g.shape == (shape[0], groups) and g.is_contiguous() and torch.equal(g, v)
+
+
+@pytest.mark.cuda
 def test_group_norm_stats_tickets_reused_across_shapes(cuda_gen):
     """Multi-slice spans on alternating shapes share the ticket counters;
     every call must leave them reset, so repeated calls give the same bits."""
@@ -248,20 +268,31 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape,groups", [
     ((2, 32, 3000), 32),
-    ((1, 32, 64000), 32),   # few rows: each split over 16 reduce blocks
-    ((4, 512, 250), 32),    # many short rows
-    ((3, 20, 333), 4),      # odd T (scalar accesses), 5 channels a group
+    ((1, 32, 64000), 32),   # few spans: many blocks a cluster
+    ((2, 64, 3000), 32),    # 2 channels a group; blocks cross channel edges
+    ((4, 512, 250), 32),    # many short rows, 16 channels a group
+    ((3, 20, 333), 4),      # odd T (element-wise loads), 5 channels a group
+    ((1, 2, 262144), 1),    # a span beyond a cluster: the two-kernel route
 ])
 @pytest.mark.parametrize("film", [False, True])
 @pytest.mark.parametrize("use_gelu", [False, True])
 def test_group_norm_backward_kernel_matches_plain(cuda_gen, dtype, tol, shape, groups, film,
                                                   use_gelu):
-    """dx, S1 and S2 against group_norm_backward_plain; the same bits from a
-    second call; every ticket counter left at 0."""
+    """dx, S1 and S2 against group_norm_backward_plain, by the route of
+    bwd_route; the same bits from a second call that computes the
+    statistics itself; launches counted per route; every ticket counter
+    left at 0."""
     x, w, b, ab = _coeffs_case(cuda_gen, shape, dtype, film)
     dy = torch.randn(shape, generator=cuda_gen, device="cuda").to(dtype)
-    launches = (gn.group_norm_backward.launches, gn.group_norm_stats.launches)
-    got = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, ab)
+    route = gn.bwd_route(x, groups)
+    assert route.name == ("two_kernel" if shape == (1, 2, 262144) else "cluster")
+    if shape == (1, 32, 64000):
+        assert route.blocks > 8  # a non-portable cluster size
+    counters = (gn.group_norm_backward, gn.group_norm_stats, gn._bwd_cluster,
+                gn._bwd_two_kernel)
+    launches = [f.launches for f in counters]
+    stats = gn.group_norm_stats(x, groups)
+    got = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, ab, stats)
     again = gn.group_norm_backward(x, dy, groups, w, b, 1e-5, use_gelu, ab)
     want = gn.group_norm_backward_plain(x, dy, groups, w, b, 1e-5, use_gelu, ab)
     torch.cuda.synchronize()
@@ -271,10 +302,10 @@ def test_group_norm_backward_kernel_matches_plain(cuda_gen, dtype, tol, shape, g
         torch.testing.assert_close(g, v, atol=1e-4 * v.abs().max().item(), rtol=1e-4)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
-    assert gn.group_norm_backward.launches == launches[0] + 4  # reduce and dx, twice
-    assert gn.group_norm_stats.launches == launches[1] + 2
-    if shape == (1, 32, 64000):
-        assert gn.bwd_slices(x)[0] > 1
+    per_call = 1 if route.name == "cluster" else 2  # one launch, or reduce and dx
+    cluster, two = (2 * per_call, 0) if route.name == "cluster" else (0, 2 * per_call)
+    assert [f.launches for f in counters] == [launches[0] + 2 * per_call, launches[1] + 2,
+                                              launches[2] + cluster, launches[3] + two]
     for buf in ticket_buffers():
         assert not buf.any()
 
@@ -303,7 +334,13 @@ def test_group_norm_function_matches_plain_autograd(cuda_gen, dtype, tol):
     y = gn.group_norm(x, w, b, groups, 1e-5, True, tuple(p.chunk(2, dim=1)))
     assert "GroupNormFunction" in type(y.grad_fn).__name__
     assert torch.equal(y, y0)
+    launches = [f.launches for f in (gn.group_norm_backward, gn.group_norm_stats,
+                                     gn._bwd_cluster)]
     y.backward(dy)
+    # One cluster launch from the forward's saved statistics; no relaunch.
+    assert [f.launches for f in (gn.group_norm_backward, gn.group_norm_stats,
+                                 gn._bwd_cluster)] == [launches[0] + 1, launches[1],
+                                                       launches[2] + 1]
     x, w, b, p = plain
     film = tuple(p.chunk(2, dim=1))
     coeffs = gn.group_norm_coeffs_plain(x, groups, w, b, 1e-5, film)

@@ -30,10 +30,11 @@
 //   order the blocks run in. The wrapper gives each stream its own tickets
 //   (ops/tickets.py).
 // - Epilogue. The last block computes rsqrt(var + eps) and writes each
-//   channel of its group. FiLM (ca, cb) is read in its own dtype through a
-//   row stride, so the chunks of a [N, 2C] projection need no copy; outputs
-//   go through a row stride, so several inputs can fill the column slices of
-//   one [N, Cin] result.
+//   channel of its group, and on request the group (mean, var) that the
+//   backward (csrc/group_norm_bwd.cu) takes. FiLM (ca, cb) is read in its
+//   own dtype through a row stride, so the chunks of a [N, 2C] projection
+//   need no copy; outputs go through a row stride, so several inputs can
+//   fill the column slices of one [N, Cin] result.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,6 +129,8 @@ struct Args {
   float* out_a;        //   statistics: mean, var [N * G]
   float* out_b;
   long long out_ld;
+  float* out_group;    // coefficients only, or null: [2, N * G] group (mean, var)
+  long long spans;     // N * G
 };
 
 template <typename T, int V>
@@ -232,6 +235,9 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
     if (args.weight == nullptr) {
       args.out_mean[span_id] = mean;
       args.out_a[span_id] = var;
+    } else if (args.out_group != nullptr) {
+      args.out_group[span_id] = mean;
+      args.out_group[args.spans + span_id] = var;
     }
     s_mean = mean;
     s_rstd = rsqrtf(var + args.eps);
@@ -276,22 +282,24 @@ extern "C" int group_norm_stats_max_slices() { return MAX_SLICES; }
 // `part` holds spans * slices * 3 floats when slices > 1, `tickets` spans
 // zeroed ints. With `weight` (and `bias`, [C] float32): writes the folded
 // (mean, a, b) of channel c of sample n at n * out_ld + c, FiLM optional
-// (film_dtype as dtype, row stride film_ld). Without: writes mean and var
-// [N * groups] to out_mean and out_a. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// (film_dtype as dtype, row stride film_ld), and, when `out_group` is not
+// null, the group mean and var as [2, N * groups] there (the backward's
+// statistics). Without: writes mean and var [N * groups] to out_mean and
+// out_a. Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int group_norm_stats(int dtype, const void* x, int n, int c, int t, int groups,
                                 int slices, long long chunk, int vec, float* part,
                                 int* tickets, const float* weight, const float* bias,
                                 float eps, const void* film_a, const void* film_b,
                                 int film_dtype, long long film_ld, float* out_mean,
                                 float* out_a, float* out_b, long long out_ld,
-                                void* stream) {
+                                float* out_group, void* stream) {
   if (slices < 1 || slices > MAX_SLICES || groups < 1 || c % groups) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int cpg = c / groups;
   Args args{(long long)cpg * t, slices, chunk, groups, cpg, part, tickets, weight, bias,
-            eps, film_a, film_b, film_dtype, film_ld, out_mean, out_a, out_b, out_ld};
+            eps, film_a, film_b, film_dtype, film_ld, out_mean, out_a, out_b, out_ld,
+            out_group, (long long)n * groups};
   const int blocks = n * groups * slices;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);

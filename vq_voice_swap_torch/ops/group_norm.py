@@ -27,15 +27,21 @@ bound is x read once (statistics), and x read once plus y written once
 
 The backward has no Pallas counterpart: it replaces the VJP the JAX package
 takes of GroupNorm (``_fgn_bwd``, fused_norm.py:280-288, and flax's
-autodiff of ``nn.GroupNorm``). ``group_norm_backward`` runs the statistics
-kernel to (mean, var) (rstd cannot be recovered from the folded a when the
-weight or the FiLM scale is 0), then ``csrc/group_norm_bwd.cu`` (its header
-has the design): dx in x's dtype and the per-row sums S1 = sum_t dz,
+autodiff of ``nn.GroupNorm``). ``group_norm_backward`` takes the group
+(mean, var) of the forward (rstd cannot be recovered from the folded a when
+the weight or the FiLM scale is 0): ``GroupNormFunction``'s forward asks
+the statistics launch for them (``group_norm_coeffs(..., stats=True)``) and
+passes them on; a standalone call without them runs the statistics kernel
+first. Then ``csrc/group_norm_bwd.cu`` (its header has the design) by one
+of two routes that ``bwd_route`` picks from the shape: one launch of a
+thread-block cluster per (n, group) that reads x and dy once into shared
+memory, or, for spans beyond a cluster's capacity, a reduce launch and a dx
+launch. Both give dx in x's dtype and the per-row sums S1 = sum_t dz,
 S2 = sum_t dz * xhat, from which ``group_norm_param_grads`` forms the
-parameter gradients. ``GroupNormFunction`` ties forward and backward
-together; ``group_norm`` takes it only on CUDA, with grad enabled and an
-input that requires it, so the no-grad paths launch exactly the two
-forward kernels. On the CPU autograd runs through the plain versions.
+parameter gradients. ``group_norm`` takes ``GroupNormFunction`` only on
+CUDA, with grad enabled and an input that requires it, so the no-grad
+paths launch exactly the two forward kernels. On the CPU autograd runs
+through the plain versions.
 
 Wrappers use the plain versions for CPU tensors and launch the kernels for
 CUDA tensors, with no fallback between them; each counts its launches.
@@ -43,7 +49,7 @@ CUDA tensors, with no fallback between them; each counts its launches.
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +63,8 @@ __all__ = [
     "GroupNormFunction",
     "group_norm_backward",
     "group_norm_backward_plain",
+    "bwd_route",
+    "BwdRoute",
     "group_norm_param_grads",
     "group_norm_coeffs",
     "group_norm_coeffs_plain",
@@ -76,11 +84,27 @@ STATS_TILE = 256 * 32
 STATS_MAX_SLICES = 256
 STATS_BLOCKS_PER_SM = 4
 MAX_SPAN = 1 << 24  # float32 counts stay exact below this
-# The backward's pass over a row, its limit on reduce blocks per row
-# (csrc/group_norm_bwd.cu reports both) and its reduce blocks per SM.
+# The backward (csrc/group_norm_bwd.cu reports its limits; _bwd_library()
+# checks them). Cluster route: at most BWD_CLUSTER_MAX blocks a span, each
+# holding at most BWD_BLOCK_ELEMS elements in at most BWD_MAX_SMEM bytes of
+# shared memory (BWD_HEADER + 8 bytes a channel of the group, rounded up
+# to 16, then 8 bytes an element).
+# Two-kernel route: the reduce's pass over a row, its limit on blocks per
+# row and its blocks per SM.
+BWD_CLUSTER_MAX = 16
+BWD_BLOCK_ELEMS = 7 * 4096
+BWD_MAX_SMEM = 232448
+BWD_HEADER = 208
 BWD_TILE = 256 * 16
 BWD_MAX_SLICES = 64
 BWD_BLOCKS_PER_SM = 4
+# How bwd_route sizes a cluster: blocks of at most BWD_TARGET_ELEMS
+# elements (64 KB of shared memory: three blocks per SM) and at least
+# BWD_FILL blocks per SM in all, unless that leaves fewer than
+# BWD_MIN_ELEMS elements a block.
+BWD_TARGET_ELEMS = 8192
+BWD_FILL = 2
+BWD_MIN_ELEMS = 1024
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -174,12 +198,14 @@ def group_norm_backward_plain(
     eps: float,
     use_gelu: bool,
     film: Film = None,
+    stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``group_norm_backward`` step by step in float32: (dx in x's dtype,
-    S1, S2 [N, C]) for y = act((x - mean) * a + b) of ``fold_affine``."""
+    S1, S2 [N, C]) for y = act((x - mean) * a + b) of ``fold_affine``, from
+    the group (mean, var) ``stats`` of the forward, or computed from x."""
     n, c, t = x.shape
     rep = c // num_groups
-    mean, var = group_stats_plain(x, num_groups)
+    mean, var = group_stats_plain(x, num_groups) if stats is None else stats
     mean_c, a, b = fold_affine(mean, var, weight, bias, eps, film)
     rstd = torch.rsqrt(var + eps).repeat_interleave(rep, dim=1)[..., None]
     d = x.float() - mean_c[..., None]
@@ -264,15 +290,18 @@ def group_norm_coeffs_plain(
     eps: float,
     film: Film = None,
     out: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    stats: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """``group_norm_coeffs`` in plain PyTorch: ``fold_affine`` of
-    ``group_stats_plain``, copied into ``out`` when given."""
-    coeffs = fold_affine(*group_stats_plain(x, num_groups), weight, bias, eps, film)
-    if out is None:
-        return coeffs
-    for dst, src in zip(out, coeffs):
-        dst.copy_(src)
-    return tuple(out)
+    ``group_stats_plain``, copied into ``out`` when given; with ``stats``,
+    followed by the group (mean, var)."""
+    group = group_stats_plain(x, num_groups)
+    coeffs = fold_affine(*group, weight, bias, eps, film)
+    if out is not None:
+        for dst, src in zip(out, coeffs):
+            dst.copy_(src)
+        coeffs = tuple(out)
+    return (*coeffs, *group) if stats else coeffs
 
 
 # ---------------------------------------------------------------- kernels
@@ -316,7 +345,7 @@ def _stats_library():
                                f"the wrapper expects {want}")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.group_norm_stats.argtypes = (
-        [i, p, i, i, i, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, i, ll, p, p, p, ll, p]
+        [i, p, i, i, i, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, i, ll, p, p, p, ll, p, p]
     )
     lib.group_norm_stats.restype = i
     return lib
@@ -326,17 +355,30 @@ def _stats_library():
 def _bwd_library():
     lib = load_library("group_norm_bwd")
     for fn, want in ((lib.group_norm_bwd_tile, BWD_TILE),
-                     (lib.group_norm_bwd_max_slices, BWD_MAX_SLICES)):
+                     (lib.group_norm_bwd_max_slices, BWD_MAX_SLICES),
+                     (lib.group_norm_bwd_cluster_max, BWD_CLUSTER_MAX),
+                     (lib.group_norm_bwd_block_elems, BWD_BLOCK_ELEMS),
+                     (lib.group_norm_bwd_max_smem, BWD_MAX_SMEM)):
         fn.restype = ctypes.c_int
         if fn() != want:
             raise RuntimeError(f"csrc/group_norm_bwd.cu: {fn.__name__} is {fn()}, "
                                f"the wrapper expects {want}")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.group_norm_bwd_cluster_smem.argtypes = [i, ll]
+    lib.group_norm_bwd_cluster_smem.restype = ll
+    for cpg, chunk in ((1, 8000), (5, 840), (16, BWD_BLOCK_ELEMS)):
+        if lib.group_norm_bwd_cluster_smem(cpg, chunk) != _bwd_cluster_smem(cpg, chunk):
+            raise RuntimeError("csrc/group_norm_bwd.cu: a cluster block's shared memory "
+                               "differs from the wrapper's _bwd_cluster_smem")
     lib.group_norm_bwd.argtypes = [
         i, p, p, p, i, i, ll, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, p, p, i, ll,
         i, p, p, p,
     ]
     lib.group_norm_bwd.restype = i
+    lib.group_norm_bwd_cluster.argtypes = [
+        i, p, p, p, i, i, ll, i, i, ll, i, p, p, ctypes.c_float, p, p, p, p, i, ll, i, p, p, p,
+    ]
+    lib.group_norm_bwd_cluster.restype = i
     return lib
 
 
@@ -350,7 +392,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _launch_stats(x, num_groups, out_mean, out_a, out_b, out_ld,
-                  weight=None, bias=None, eps=0.0, film: Film = None) -> None:
+                  weight=None, bias=None, eps=0.0, film: Film = None, out_group=None) -> None:
     """One launch of the statistics kernel (see csrc/group_norm_stats.cu)."""
     n, c, t = x.shape
     spans, span = n * num_groups, (c // num_groups) * t
@@ -377,7 +419,8 @@ def _launch_stats(x, num_groups, out_mean, out_a, out_b, out_ld,
             _DTYPE_CODE[x.dtype], x.data_ptr(), n, c, t, num_groups, slices, chunk,
             int(vec), _ptr(part), tickets(stream, spans).data_ptr(), _ptr(weight),
             _ptr(bias), float(eps), _ptr(ca), _ptr(cb), film_code, film_ld,
-            out_mean.data_ptr(), out_a.data_ptr(), _ptr(out_b), out_ld, stream.cuda_stream,
+            out_mean.data_ptr(), out_a.data_ptr(), _ptr(out_b), out_ld, _ptr(out_group),
+            stream.cuda_stream,
         )
     if err:
         raise RuntimeError(f"group_norm_stats kernel launch failed: CUDA error {err}")
@@ -391,23 +434,31 @@ def group_norm_coeffs(
     eps: float,
     film: Film = None,
     out: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    stats: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Float32 per-channel (mean, a, b) [N, C] of GroupNorm over [N, C, T]
     with affine ``weight``/``bias`` [C] and optional FiLM (ca, cb) [N, C]
     folded in, as ``group_norm_apply`` takes them: one kernel launch on the
     card. ``out``, a float32 [3, N, C] view with unit channel stride (e.g.
-    the column slice of a wider [3, N, Cin] buffer), receives them."""
+    the column slice of a wider [3, N, Cin] buffer), receives them. With
+    ``stats``, the same launch also writes the group (mean, var) [N, G],
+    returned after them, as ``group_norm_backward`` takes them."""
     _check_x(x)
     _check_groups(x, num_groups)
     _check_coeffs(x, weight, bias, film, out)
     if x.device.type == "cpu":
-        return group_norm_coeffs_plain(x, num_groups, weight, bias, eps, film, out)
+        return group_norm_coeffs_plain(x, num_groups, weight, bias, eps, film, out, stats)
     n, c, _ = x.shape
     if out is None:
         out = torch.empty((3, n, c), dtype=torch.float32, device=x.device)
+    group = None
+    if stats:
+        group = torch.empty((2, n, num_groups), dtype=torch.float32, device=x.device)
     _launch_stats(x, num_groups, out[0], out[1], out[2], out.stride(1),
-                  weight.float().contiguous(), bias.float().contiguous(), eps, film)
+                  weight.float().contiguous(), bias.float().contiguous(), eps, film, group)
     group_norm_coeffs.launches += 1
+    if stats:
+        return out[0], out[1], out[2], group[0], group[1]
     return out[0], out[1], out[2]
 
 
@@ -467,12 +518,15 @@ def group_norm_backward(
     eps: float,
     use_gelu: bool,
     film: Film = None,
+    stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``group_norm`` at x for an output gradient dy (x's
     dtype and shape): (dx in x's dtype, float32 S1 = sum_t dz and
-    S2 = sum_t dz * xhat [N, C], for ``group_norm_param_grads``). On the
-    card: the statistics kernel to (mean, var), then the two backward
-    kernels."""
+    S2 = sum_t dz * xhat [N, C], for ``group_norm_param_grads``). ``stats``
+    is the forward's group (mean, var), float32 [N, G] each
+    (``group_norm_coeffs(..., stats=True)``); without it the card first runs
+    the statistics kernel. On the card, the backward kernel by the route of
+    ``bwd_route``: one launch, or two beyond a cluster's capacity."""
     _check_x(x)
     _check_groups(x, num_groups)
     _check_coeffs(x, weight, bias, film, None)
@@ -481,88 +535,170 @@ def group_norm_backward(
                          f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
     if not dy.is_contiguous():
         raise ValueError("dy must be contiguous")
+    if stats is not None:
+        want = (x.shape[0], num_groups)
+        for v in stats:
+            if (v.shape != want or v.dtype != torch.float32 or v.device != x.device
+                    or not v.is_contiguous()):
+                raise ValueError(f"stats must be contiguous float32 {want} on {x.device}, "
+                                 f"got {v.dtype} {tuple(v.shape)} on {v.device}")
     if x.device.type == "cpu":
-        return group_norm_backward_plain(x, dy, num_groups, weight, bias, eps, use_gelu, film)
-    mean, var = group_norm_stats(x, num_groups)
+        return group_norm_backward_plain(x, dy, num_groups, weight, bias, eps, use_gelu, film,
+                                         stats)
+    mean, var = group_norm_stats(x, num_groups) if stats is None else stats
     return _launch_bwd(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film)
 
 
-def bwd_slices(x: torch.Tensor) -> Tuple[int, int]:
-    """(slices, chunk): the backward reduce splits each (n, c) row of x over
-    ``slices`` blocks of ``chunk`` samples (a multiple of 8), so that few
-    rows still fill the card; with more than one, the last block of a row
-    merges the slices' partial sums in slice order."""
+class BwdRoute(NamedTuple):
+    """How the backward runs: ``name`` "cluster" (one launch, ``blocks``
+    blocks of a thread-block cluster per (n, group) span, ``chunk`` span
+    elements each) or "two_kernel" (reduce + dx, ``blocks`` reduce blocks
+    per (n, channel) row, ``chunk`` row elements each)."""
+
+    name: str
+    blocks: int
+    chunk: int
+
+
+def _round8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def _bwd_cluster_smem(cpg: int, chunk: int) -> int:
+    """Shared memory of one cluster block (csrc/group_norm_bwd.cu
+    ``cluster_smem``): header and per-channel partials, then 8 bytes an
+    element (x, dy, and dz in float32 for bfloat16)."""
+    return -(-(BWD_HEADER + 8 * cpg) // 16) * 16 + 8 * chunk
+
+
+def bwd_slices(x: torch.Tensor, sms: Optional[int] = None) -> Tuple[int, int]:
+    """(slices, chunk) of the two-kernel route: its reduce splits each
+    (n, c) row of x over ``slices`` blocks of ``chunk`` samples (a multiple
+    of 8), so that few rows still fill the card; with more than one, the
+    last block of a row merges the slices' partial sums in slice order."""
     n, c, t = x.shape
     rows = n * c
-    target = _sm_count(x.device) * BWD_BLOCKS_PER_SM
+    sms = _sm_count(x.device) if sms is None else sms
+    target = sms * BWD_BLOCKS_PER_SM
     slices = max(1, min(target // max(rows, 1), -(-t // BWD_TILE), BWD_MAX_SLICES))
-    chunk = -(-t // slices)
-    return slices, -(-chunk // 8) * 8
+    return slices, _round8(-(-t // slices))
 
 
-def _launch_bwd(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film):
-    """The backward's two kernels (reduce, then dx) from x's group (mean,
-    var); counts one launch for each."""
+def bwd_route(x: torch.Tensor, num_groups: int, sms: Optional[int] = None) -> BwdRoute:
+    """The backward's route for x (any tensor of x's shape and dtype, a
+    ``meta`` one included) on a card of ``sms`` SMs (default: x's card): a
+    pure function of those and the kernel's limits. The cluster route when
+    a (n, group) span of C/G * T elements fits BWD_CLUSTER_MAX blocks, with
+    the fewest blocks (a power of two) that keep each block within
+    BWD_TARGET_ELEMS and give the card BWD_FILL blocks per SM; else the
+    two-kernel route. At 16 kHz a span outgrows the cluster beyond 14.3 s
+    of audio at a unet32's first level (its up path's 64 channels, two a
+    group), 7.2 s at a unet64's (128 channels, four a group) and 28.7 s at
+    a classifier's (one)."""
     n, c, t = x.shape
-    rows = n * c
-    slices, chunk = bwd_slices(x)
+    cpg = c // num_groups
+    span, spans = cpg * t, n * num_groups
+    sms = _sm_count(x.device) if sms is None else sms
+    chosen = None
+    k = 1
+    while k <= BWD_CLUSTER_MAX:
+        chunk = _round8(-(-span // k))
+        if chunk <= BWD_BLOCK_ELEMS and _bwd_cluster_smem(cpg, chunk) <= BWD_MAX_SMEM:
+            chosen = BwdRoute("cluster", k, chunk)
+            if chunk <= BWD_MIN_ELEMS or (chunk <= BWD_TARGET_ELEMS
+                                          and spans * k >= BWD_FILL * sms):
+                break
+        k *= 2
+    return chosen or BwdRoute("two_kernel", *bwd_slices(x, sms))
+
+
+def _launch_bwd(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film,
+                route: Optional[BwdRoute] = None):
+    """The backward kernel from x's group (mean, var), by ``route``
+    (default ``bwd_route``); counts each launch in ``group_norm_backward``
+    and in its route's launcher."""
+    route = route or bwd_route(x, num_groups)
+    n, c, t = x.shape
     dx = torch.empty_like(x)
     sums = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
     vec = (t % (16 // x.element_size()) == 0
            and all(v.data_ptr() % 16 == 0 for v in (x, dy, dx)))
-    stream = torch.cuda.current_stream(x.device)
-    part = ticket = None
-    if slices > 1:
-        part = torch.empty(rows * slices * 2, dtype=torch.float32, device=x.device)
-        ticket = tickets(stream, rows)
     ca = cb = None
     film_code, film_ld = 0, 0
     if film is not None:
         ca, cb = film
         film_code, film_ld = _DTYPE_CODE[ca.dtype], ca.stride(0)
     w32, b32 = weight.float().contiguous(), bias.float().contiguous()
+    stream = torch.cuda.current_stream(x.device)
+    tail = (mean.data_ptr(), var.data_ptr(), float(eps), w32.data_ptr(), b32.data_ptr(),
+            _ptr(ca), _ptr(cb), film_code, film_ld, int(use_gelu), sums[0].data_ptr(),
+            sums[1].data_ptr(), stream.cuda_stream)
+    head = (_DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, t,
+            num_groups, route.blocks, route.chunk, int(vec))
+    launcher = _bwd_cluster if route.name == "cluster" else _bwd_two_kernel
+    launcher(x, stream, head, tail)
+    return dx, sums[0], sums[1]
+
+
+def _bwd_cluster(x, stream, head, tail) -> None:
+    """One launch of the cluster kernel."""
     with torch.cuda.device(x.device):
-        err = _bwd_library().group_norm_bwd(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, t,
-            num_groups, slices, chunk, int(vec), _ptr(part), _ptr(ticket), mean.data_ptr(),
-            var.data_ptr(), float(eps), w32.data_ptr(), b32.data_ptr(), _ptr(ca), _ptr(cb),
-            film_code, film_ld, int(use_gelu), sums[0].data_ptr(), sums[1].data_ptr(),
-            stream.cuda_stream,
-        )
+        err = _bwd_library().group_norm_bwd_cluster(*head, *tail)
+    if err:
+        raise RuntimeError(f"group_norm_bwd_cluster kernel launch failed: CUDA error {err}")
+    _bwd_cluster.launches += 1
+    group_norm_backward.launches += 1
+
+
+def _bwd_two_kernel(x, stream, head, tail) -> None:
+    """The reduce and dx launches; a row split over several reduce blocks
+    merges through a per-row ticket."""
+    n, c, slices = head[4], head[5], head[8]
+    rows = n * c
+    part = ticket = None
+    if slices > 1:
+        part = torch.empty(rows * slices * 2, dtype=torch.float32, device=x.device)
+        ticket = tickets(stream, rows)
+    with torch.cuda.device(x.device):
+        err = _bwd_library().group_norm_bwd(*head, _ptr(part), _ptr(ticket), *tail)
     if err:
         raise RuntimeError(f"group_norm_bwd kernel launch failed: CUDA error {err}")
+    _bwd_two_kernel.launches += 2
     group_norm_backward.launches += 2
-    return dx, sums[0], sums[1]
 
 
 group_norm_coeffs.launches = 0
 group_norm_stats.launches = 0
 group_norm_apply.launches = 0
 group_norm_backward.launches = 0
+_bwd_cluster.launches = 0
+_bwd_two_kernel.launches = 0
 
 
 class GroupNormFunction(torch.autograd.Function):
     """``group_norm`` with its backward: forward ``group_norm_coeffs`` +
-    ``group_norm_apply`` (the same launches and bits as without grad),
-    backward ``group_norm_backward``, with the parameter gradients formed
-    only when asked for. ca and cb are the FiLM pair (both None without
-    FiLM)."""
+    ``group_norm_apply`` (the same launches and outputs as without grad; the
+    statistics launch also writes the group (mean, var), saved with x),
+    backward ``group_norm_backward`` from those statistics, with the
+    parameter gradients formed only when asked for. ca and cb are the FiLM
+    pair (both None without FiLM)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, ca, cb, num_groups, eps, use_gelu):
         film = None if ca is None else (ca, cb)
-        mean_c, a, b = group_norm_coeffs(x, num_groups, weight, bias, eps, film)
-        ctx.save_for_backward(x, weight, bias, ca, cb)
+        mean_c, a, b, mean, var = group_norm_coeffs(x, num_groups, weight, bias, eps, film,
+                                                    stats=True)
+        ctx.save_for_backward(x, weight, bias, ca, cb, mean, var)
         ctx.num_groups, ctx.eps, ctx.use_gelu = num_groups, eps, use_gelu
         return group_norm_apply(x, mean_c, a, b, use_gelu)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, weight, bias, ca, cb = ctx.saved_tensors
+        x, weight, bias, ca, cb, mean, var = ctx.saved_tensors
         film = None if ca is None else (ca, cb)
         dx, s1, s2 = group_norm_backward(x, dy.contiguous(), ctx.num_groups, weight, bias,
-                                         ctx.eps, ctx.use_gelu, film)
+                                         ctx.eps, ctx.use_gelu, film, (mean, var))
         grads = [dx if ctx.needs_input_grad[0] else None, None, None, None, None]
         if any(ctx.needs_input_grad[1:5]):
             params = (weight, bias, ca, cb)
