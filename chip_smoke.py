@@ -13,8 +13,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (Triton) at [16, 64, 64000] in f32 and bf16, [16, 512, 250] with and
    without GELU and FiLM, the CLI's [1, 64, 64000] and a large-mean input
    (f32 atol 1e-4, bf16 atol 2e-2; statistics 1e-5 / 1e-4 relative); VQ
-   assignment (CUDA, 3xTF32 tensor cores) at B=1, 200, 3200 and 3201,
-   C=1024, D=512, twice for the same bits, and an exact-tie case (indices
+   assignment (CUDA, 3xTF32 tensor cores) at B=1, 200, 3200, 3201 and
+   8000 (the unet128 encoder's rows at the training batch), C=1024, D=512,
+   twice for the same bits, and an exact-tie case (indices
    equal up to true ties at 1e-6 relative in float64, used masks equal);
    the fused ResBlock pair (CUDA, tensor cores) at the unet64 top levels'
    shapes, two inputs, no FiLM, dilations 1 and 4, a ragged T and 256 ->
@@ -34,7 +35,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    group_norm_backward_plain at the guidance networks' largest shape
    [16, 32, 64000], at the guided CLIs' [1, 32, 64000] and [2, 32, 64000],
    at unet64's first level [16, 64, 64000] (two channels a group), at
-   [3, 20, 333] (odd T, 5 channels a group) and at [1, 128, 128000] (a
+   unet64's first up level in training [16, 128, 64000] (four channels a
+   group, 16-block clusters), at [3, 20, 333] (odd T, 5 channels a group) and at [1, 128, 128000] (a
    unet64 first-level span at 8 s: the two-kernel route), f32 and bf16,
    with and without FiLM and GELU (dx within 1e-4 / 2e-2 of max(|dx|, 1),
    S1 and S2 within 1e-4 of their largest), from the forward's saved
@@ -42,8 +44,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    timed at [16, 32, 64000] and [1, 32, 64000] beside its bound (x and dy
    read, dx written), the standalone wrapper (with a statistics launch),
    the two-kernel route at the same shape, its plain version and
-   torch.ops.aten.native_group_norm_backward (no FiLM, no GELU). Every ticket
-   counter (ops/tickets.py) is 0 after this phase and after the last.
+   torch.ops.aten.native_group_norm_backward (no FiLM, no GELU). A
+   training step's GroupNorm at [16, 128, 64000], FiLM + GELU, f32 and
+   bf16, x, the affine and the FiLM projection and its input all requiring
+   grad: every gradient through GroupNormFunction (the statistics, apply
+   and backward kernels) against autograd through the plain versions
+   (1e-4 / 2e-2 of its largest entry). Every ticket counter
+   (ops/tickets.py) is 0 after this phase, after phase 4 and after the
+   last.
 3. Main paths, each with every launch count set to 0 just before it and
    read just after. The swap: a full-width VQ-VAE (unet64 predictor,
    conv-mfcc-ulaw encoder, 512 x 1024 codebook, 251 labels) on seeded
@@ -79,6 +87,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    clips with encoder-predictor guidance and 16 classifier-guided
    unconditional samples, 10 DPM++ steps each, with peak device memory and a
    profile of one guided step.
+5. Training, a main path of its own (launch counts set to 0 just before
+   each run and read just after), each CLI's ``main``: ``train_vqvae`` on the JAX package's training flagship
+   (``tones:40``, unet64 predictor, unet128 encoder, 512 x 1024 codebook,
+   class-conditional, batch 16 of 4 s) for 8 steps in bf16, then in f32,
+   and ``train_diffusion`` (unet64, class-conditional, bf16, batch 16) for
+   5; each run's samples/s (the median of the steady steps), peak device
+   memory, and launches asserted (per step, every GroupNorm one statistics,
+   one apply and one cluster backward launch: 178 for the VQ-VAE, 131 for
+   the diffusion model; one VQ assign per VQ-VAE step); each run resumed
+   from its save and one step profiled, its GroupNorm and VQ launches
+   asserted from the profiler; then one full-width VQ-VAE step (f32, TF32
+   off, batch 1 x 16384) on the card against the same step on the CPU
+   through the plain versions (the same codes, the loss within 1e-4
+   relative, each gradient leaf within 1e-3 of its largest entry).
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -86,8 +108,10 @@ without the package beside it, the script exits non-zero and prints no
 result.
 """
 
+import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -101,7 +125,13 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from kernel_ab import cuda_ms, eager_ms, seed_weights  # noqa: E402
-from vq_voice_swap_torch import sample_diffusion, sample_vqvae, sample_vqvae_uncond  # noqa: E402
+from vq_voice_swap_torch import (  # noqa: E402
+    sample_diffusion,
+    sample_vqvae,
+    sample_vqvae_uncond,
+    train_diffusion,
+    train_vqvae,
+)
 from vq_voice_swap_torch.classifier_model import (  # noqa: E402
     ClassifierModel,
     EncoderPredictorModel,
@@ -115,6 +145,8 @@ from vq_voice_swap_torch.ops import fused_resblock as frb  # noqa: E402
 from vq_voice_swap_torch.ops import group_norm as gn  # noqa: E402
 from vq_voice_swap_torch.ops import vq_assign as vqa  # noqa: E402
 from vq_voice_swap_torch.ops.tickets import ticket_buffers  # noqa: E402
+from vq_voice_swap_torch.train import DiffusionTrainLoop, VQVAETrainLoop  # noqa: E402
+from vq_voice_swap_torch.train.loops import step_generator  # noqa: E402
 from vq_voice_swap_torch.vq_vae import VQVAE  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit.
@@ -274,22 +306,25 @@ def check_group_norm_backward(dev, gen):
     group_norm_backward_plain; returns the JSON entry (f32 at the largest
     guidance-network shape, no FiLM, no GELU: the function
     native_group_norm_backward computes)."""
-    # (shape, groups, route): the guidance networks' largest shape at the
-    # serving batch, the guided CLIs' batches 1 (enc-pred) and 2
-    # (classifier), unet64's first level (two channels a group), an odd T
-    # with 5 channels a group, and a unet64 first-level span at 8 s, beyond
-    # a cluster's capacity.
-    cases = [((BATCH, 32, SAMPLES), 32, "cluster"), ((1, 32, SAMPLES), 32, "cluster"),
-             ((2, 32, SAMPLES), 32, "cluster"), ((BATCH, 64, SAMPLES), 32, "cluster"),
-             ((3, 20, 333), 4, "cluster"), ((1, 128, 2 * SAMPLES), 32, "two_kernel")]
+    # (shape, groups, route, blocks): the guidance networks' largest shape
+    # at the serving batch, the guided CLIs' batches 1 (enc-pred) and 2
+    # (classifier), unet64's first down level and the unet128 encoder's
+    # first levels (two channels a group), unet64's first up level in
+    # training (four channels a group, 16-block clusters), an odd T with 5
+    # channels a group, and a unet64 first-level span at 8 s, beyond a
+    # cluster's capacity.
+    cases = [((BATCH, 32, SAMPLES), 32, "cluster", 8), ((1, 32, SAMPLES), 32, "cluster", 16),
+             ((2, 32, SAMPLES), 32, "cluster", 8), ((BATCH, 64, SAMPLES), 32, "cluster", 16),
+             ((BATCH, 128, SAMPLES), 32, "cluster", 16), ((3, 20, 333), 4, "cluster", 2),
+             ((1, 128, 2 * SAMPLES), 32, "two_kernel", 4)]
     err = 0.0
-    for shape, groups, want_route in cases:
+    for shape, groups, want_route, want_blocks in cases:
         n, c, _ = shape
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
             dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
             route = gn.bwd_route(x, groups)
-            assert route.name == want_route, (shape, route)
+            assert (route.name, route.blocks) == (want_route, want_blocks), (shape, route)
             passes = 3 if route.name == "cluster" else 5
             w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
             b = 0.2 * torch.randn(c, generator=gen, device=dev)
@@ -389,6 +424,59 @@ def check_group_norm_backward(dev, gen):
     return entry
 
 
+def check_group_norm_training_grads(dev, gen):
+    """A training step's GroupNorm at unet64's first up level ([16, 128,
+    64000], 32 groups, 16-block clusters), FiLM + GELU, in float32 and
+    bfloat16: x, the float32 affine and the FiLM pair (the halves of a
+    ResBlock's cond_proj of the step's embedding, in the compute dtype) all
+    require grad. Through GroupNormFunction (the statistics, apply and
+    backward kernels), every gradient down to the projection's weight and
+    bias and the embedding is autograd's through the plain versions, within
+    the dtype's tolerance of its largest entry."""
+    shape, groups, emb_ch = (BATCH, 128, SAMPLES), 32, EMB
+    n, c, _ = shape
+    names = ("x", "weight", "bias", "proj weight", "proj bias", "embedding")
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        x0 = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+        w0 = torch.rand(c, generator=gen, device=dev) + 0.5
+        b0 = 0.1 * torch.randn(c, generator=gen, device=dev)
+        pw0 = torch.randn(2 * c, emb_ch, generator=gen, device=dev) / emb_ch ** 0.5
+        pb0 = 0.1 * torch.randn(2 * c, generator=gen, device=dev)
+        emb0 = torch.randn(n, emb_ch, generator=gen, device=dev).to(dtype)
+        dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        assert gn.bwd_route(x0, groups) == gn.BwdRoute("cluster", 16, 16000)
+
+        def grads(kernel: bool):
+            x, w, b, pw, pb, emb = (v.clone().requires_grad_()
+                                    for v in (x0, w0, b0, pw0, pb0, emb0))
+            film = tuple(F.linear(F.gelu(emb), pw.to(dtype), pb.to(dtype)).chunk(2, dim=-1))
+            if kernel:
+                y = gn.group_norm(x, w, b, groups, 1e-5, True, film)
+                assert "GroupNormFunction" in type(y.grad_fn).__name__
+            else:
+                coeffs = gn.group_norm_coeffs_plain(x, groups, w, b, 1e-5, film)
+                y = gn.group_norm_apply_plain(x, *coeffs, True)
+            y.backward(dy)
+            return [v.grad for v in (x, w, b, pw, pb, emb)]
+
+        launches = gn._bwd_cluster.launches
+        got = grads(True)
+        assert gn._bwd_cluster.launches == launches + 1
+        want = grads(False)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, v in zip(names, got, want):
+            assert g.dtype == v.dtype and g.shape == v.shape, name
+            scale = v.float().abs().max().item()
+            errs.append((g.float() - v.float()).abs().max().item() / scale)
+        print(f"groupnorm training gradients {list(shape)} {str(dtype)[6:]} FiLM + GELU, "
+              f"route cluster of 16 blocks: error of each gradient over its largest entry "
+              + ", ".join(f"{k} {e:.3g}" for k, e in zip(names, errs)) + f" (limit {tol})")
+        assert max(errs) <= tol, errs
+        del x0, dy, got, want
+    torch.cuda.empty_cache()
+
+
 def _vq_pick_gap(d, x, got, want):
     """Largest float64 distance gap between the two picks of any row, and
     the largest such gap relative to the distance (0 where they agree)."""
@@ -404,7 +492,10 @@ def check_vq(dev, gen):
     c, d = 1024, 512
     dictionary = torch.randn(d, c, generator=gen, device=dev)
     err = 0.0
-    for b in (1, 200, BATCH * 200, BATCH * 200 + 1):
+    # Rows: the CLI's batch 1 and the serving batch of the conv-mfcc-ulaw
+    # encoder (200 frames a 4 s clip), one more, and the flagship training
+    # batch of the unet128 encoder (500 frames a clip).
+    for b in (1, 200, BATCH * 200, BATCH * 200 + 1, BATCH * 500):
         x = torch.randn(b, c, generator=gen, device=dev)
         idx, used = vqa.vq_assign(dictionary, x)
         idx2, used2 = vqa.vq_assign(dictionary, x)
@@ -927,47 +1018,87 @@ def profile_predictor(model: VQVAE, dev, name: str) -> None:
     cond = torch.randn(BATCH, SAMPLES // 320, model.cond_channels,
                        generator=gen, device=dev)
     labels = torch.arange(BATCH, device=dev)
-    launches = profile_call(lambda: model.predict_eps(x, ts, cond, labels), name)
+    launches, _ = profile_call(lambda: model.predict_eps(x, ts, cond, labels),
+                               f"{name} predictor call")
     print(f"  swap predictor call {name}: {launches} kernel launches (target: < 2000)")
     group_norm_glue(model, dev, name)
 
 
-def profile_call(fn, name: str) -> int:
+def profile_call(fn, name: str, grad: bool = False):
     """Device time by kernel class for one warm call of fn (a predictor
-    call at BATCH), and the device's busy share of its wall time. Returns
-    the call's kernel launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.no_grad():
+    call or a train step at BATCH), and the device's busy share of its wall
+    time. Returns the call's kernel launches and their count by class."""
+    with torch.set_grad_enabled(grad):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = _device_kernels(prof)
-    total = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    by_class = {}
-    for e in kernels:
-        cls = _kernel_class(e.key)
-        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
-    print(f"profile {name} predictor call, batch {BATCH}: wall {wall_ms:.3f} ms, "
+        records, wall_ms, lost = profiled(fn)
+    total = sum(ms for _, ms in records)
+    by_class, counts, by_name = {}, {}, {}
+    for key, ms in records:
+        cls = _kernel_class(key)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        counts[cls] = counts.get(cls, 0) + 1
+        t, c = by_name.get(key, (0.0, 0))
+        by_name[key] = (t + ms, c + 1)
+    print(f"profile {name}, batch {BATCH}: wall {wall_ms:.3f} ms, "
           f"device busy {total:.3f} ms ({100 * total / wall_ms:.1f}%), "
-          f"{launches} kernel launches")
+          f"{len(records)} kernel launches (the profiler lost the device records of "
+          f"{lost} of the {PROFILE_PAD} pad launches before it)")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"  {cls}: {ms:.3f} ms ({100 * ms / max(total, 1e-9):.1f}%)")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        print(f"  top kernel {e.self_device_time_total / 1e3:.3f} ms x{e.count} "
-              f"{e.key[:100]}")
-    return launches
+        print(f"  {cls}: {ms:.3f} ms ({100 * ms / max(total, 1e-9):.1f}%), "
+              f"{counts[cls]} launches")
+    for key, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  top kernel {ms:.3f} ms x{c} {key[:100]}")
+    return len(records), counts
 
 
-def _device_kernels(prof):
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+# torch.profiler loses the device records of a session's first launches:
+# none in a fresh process, most often 1-6 a session later on, now and then
+# 49-252 (PERF.md §6, PR 8), while the host's launch records stay whole
+# and a pause before the work does not shrink the loss. So every profiled
+# window opens with PROFILE_PAD small launches (~20 ms of host time) that
+# take the loss, and the records of the work are found by their launches'
+# correlation ids.
+PROFILE_PAD = 4096
+_LAUNCH_CALLS = ("Launch", "Memcpy", "Memset")
+
+
+def profiled(fn):
+    """Run fn() under torch.profiler after PROFILE_PAD small launches.
+    Returns fn's device records as (name, ms), one per kernel or copy its
+    launches made, fn's wall time in ms, and how many pad launches lost
+    their device record. Fails if any launch of fn has no device record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    launches = sorted((e for e in events if e.device_type() != cuda
+                       and any(k in e.name() for k in _LAUNCH_CALLS)),
+                      key=lambda e: e.start_ns())
+    ids = [e.correlation_id() for e in launches]
+    # Device records by their launch; not the ranges that record_function
+    # annotations (the optimizer's step) draw on the device's timeline.
+    recorded = {}
+    for e in events:
+        if e.device_type() == cuda and not e.is_user_annotation():
+            recorded.setdefault(e.correlation_id(), []).append(e)
+    pad_ids, fn_ids = ids[:PROFILE_PAD], ids[PROFILE_PAD:]
+    missing = [launches[PROFILE_PAD + i].name() for i, c in enumerate(fn_ids)
+               if c not in recorded]
+    assert len(pad_ids) == PROFILE_PAD and not missing, (
+        f"{len(missing)} of {len(fn_ids)} launches without a device record: {missing[:8]}")
+    records = [(e.name(), e.duration_ns() / 1e6) for c in fn_ids for e in recorded[c]]
+    return records, wall_ms, sum(c not in recorded for c in pad_ids)
 
 
 def group_norm_glue(model: VQVAE, dev, name: str) -> None:
@@ -978,8 +1109,6 @@ def group_norm_glue(model: VQVAE, dev, name: str) -> None:
     fold: its device launches and device time, counted by torch.profiler on
     one call for the largest fused block, and its host dispatch time, each
     scaled by the fused blocks of one predictor call at fuse_levels=2."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
     from vq_voice_swap_torch.models.layers import GroupNorm
 
     n_norms = sum(isinstance(m, GroupNorm) for m in model.predictor.modules())
@@ -992,16 +1121,8 @@ def group_norm_glue(model: VQVAE, dev, name: str) -> None:
     for f in (None, film):
         gn.group_norm(x, w, b, groups, 1e-5, True, f)
         torch.cuda.synchronize()
-        # One call in a warm-up step, then one recorded: the profiler can
-        # miss a launch at the very start of its window.
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                gn.group_norm(x, w, b, groups, 1e-5, True, f)
-                torch.cuda.synchronize()
-                prof.step()
-        names = sorted(_kernel_class(e.key) for e in _device_kernels(prof)
-                       for _ in range(e.count))
+        records, _, _ = profiled(lambda: gn.group_norm(x, w, b, groups, 1e-5, True, f))
+        names = sorted(_kernel_class(key) for key, _ in records)
         assert names == ["groupnorm apply (Triton)", "groupnorm stats + fold (CUDA)"], names
     print(f"  unfused GroupNorm {name}, with and without FiLM: 2 launches "
           f"(statistics + fold, apply), no torch op between them")
@@ -1021,10 +1142,7 @@ def group_norm_glue(model: VQVAE, dev, name: str) -> None:
 
         merge_and_fold()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            merge_and_fold()
-            torch.cuda.synchronize()
-        glue = _device_kernels(prof)
+        glue, _, _ = profiled(merge_and_fold)
         t0 = time.perf_counter()
         for _ in range(100):
             merge_and_fold()
@@ -1033,8 +1151,8 @@ def group_norm_glue(model: VQVAE, dev, name: str) -> None:
     per = FUSED_PER_PREDICTOR
     print(f"  fused-block GroupNorm-2 merge + fold {name} ({per} fused blocks per "
           f"predictor call at fuse_levels={FUSE_LEVELS}): "
-          f"{per * sum(e.count for e in glue)} kernel launches, device "
-          f"{per * sum(e.self_device_time_total for e in glue) / 1e3:.3f} ms, host dispatch "
+          f"{per * len(glue)} kernel launches, device "
+          f"{per * sum(ms for _, ms in glue):.3f} ms, host dispatch "
           f"{per * host_ms:.3f} ms")
 
 
@@ -1079,7 +1197,8 @@ def sampling_serving_time(dev, ckpt: str, smi: str):
         if dtype == "bfloat16":
             ts = torch.full((BATCH,), 0.5, device=dev)
             for k, m in models.items():
-                profile_call(lambda: m.predict_eps(x_T, ts), f"{name} fuse_levels={k}")
+                profile_call(lambda: m.predict_eps(x_T, ts),
+                             f"{name} fuse_levels={k} predictor call")
         del models, outs
     gap = (unfused["bfloat16"] - unfused["float32"]).abs().mean().item()
     print(f"sampling, for scale: mean |bf16 - f32| waveform gap at fuse_levels=0 {gap:.4g}")
@@ -1138,14 +1257,179 @@ def guided_serving_time(dev, ckpt: str, uncond_ckpt: str, ep_ckpt: str, clf_ckpt
                             generator=gen, device=dev)
     ep_fn = enc_pred.cond_fn(targets, 1.0)
     clf_fn = classifier.cond_fn(labels, 1.0)
-    launches = profile_call(lambda: (model.predict_eps(x_T, ts, cond, labels), ep_fn(x_T, ts)),
-                            "f32 enc-pred guided step")
+    launches, _ = profile_call(
+        lambda: (model.predict_eps(x_T, ts, cond, labels), ep_fn(x_T, ts)),
+        "f32 enc-pred guided step")
     print(f"  enc-pred guided step: {launches} kernel launches")
-    launches = profile_call(lambda: (uncond.predict_eps(x_T, ts), clf_fn(x_T, ts)),
-                            "f32 classifier-guided step")
+    launches, _ = profile_call(lambda: (uncond.predict_eps(x_T, ts), clf_fn(x_T, ts)),
+                               "f32 classifier-guided step")
     print(f"  classifier-guided step: {launches} kernel launches")
     del model, enc_pred, uncond, classifier
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+# Training: the flagship of the JAX package's train benchmark
+# (scripts/bench_train.py:56-57): unet64 predictor, unet128 encoder, 512
+# codes of 1024 channels, class-conditional, batch 16 of 4 s tones.
+TRAIN_VQVAE_ARGV = ["tones:40", "--predictor", "unet", "--base-channels", "64",
+                    "--encoder", "unet128", "--class-cond", "--batch-size", str(BATCH)]
+TRAIN_DIFFUSION_ARGV = ["tones:40", "--base-channels", "64", "--class-cond",
+                        "--batch-size", str(BATCH), "--bf16"]
+TRAIN_STEPS = 8
+GN_PER_ENCODER128 = 47  # 23 ResBlocks x 2 + out_norm
+
+
+def _train_log(out: str):
+    """(step, {key: value}) of each line of a run's train_log.txt."""
+    entries = []
+    with open(os.path.join(out, "train_log.txt")) as f:
+        for line in f:
+            if line.startswith("step "):
+                head, fields = line.split(": ", 1)
+                entries.append((int(head[5:]), {k: float(v) for k, v in (
+                    tok.split("=") for tok in fields.split())}))
+    return entries
+
+
+def training_run(dev, workdir: str, name: str, cli, argv, steps: int, gn_per_step: int,
+                 vq_per_step: int, smi: str):
+    """One train CLI run of ``steps`` steps (saved at the last), with the
+    launch counts set to 0 just before it; asserts the launches of every
+    kernel of the path and prints samples/s (the median over the steps
+    after two warm-up steps, less the last, whose metrics are fetched at
+    the save) and peak device memory. Returns the run's directory, argv
+    and counts."""
+    out = os.path.join(workdir, name.replace(" ", "_"))
+    argv = argv + ["--max-steps", str(steps), "--save-interval", str(steps),
+                   "--output-dir", out, "--device", "cuda"]
+    torch.cuda.synchronize(dev)  # the peak-memory reset needs the card's context
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log = _train_log(out)
+    assert [s for s, _ in log] == list(range(1, steps + 1)), log
+    assert all(np.isfinite(v) for _, f in log for v in f.values())
+    # The last step's metrics are fetched at the save, just after the one before.
+    rates = [f["samples_per_sec"] for _, f in log[2:-1]]
+    print(f"training {name} on {smi}: {steps} steps in {seconds:.3f} s (build, data and "
+          f"save included), {float(np.median(rates)):.4f} samples/s (median of steps "
+          f"3-{steps - 1}: {[round(r, 3) for r in rates]}), peak device memory "
+          f"{peak:.2f} GiB, "
+          f"losses {[round(f['loss'], 4) for _, f in log]}, launches {counts}")
+    if vq_per_step:
+        print(f"  codebook_used {[f['codebook_used'] for _, f in log]}")
+    for f in ("model.npz", "opt.pt"):
+        assert os.path.exists(os.path.join(out, f)), f
+    # Every GroupNorm: statistics + apply forward, one cluster launch backward.
+    n_gn = gn_per_step * steps
+    assert counts["group_norm_coeffs"] == counts["group_norm_apply"] == n_gn
+    assert counts["group_norm_backward"] == counts["_bwd_cluster"] == n_gn
+    assert counts["group_norm_stats"] == counts["_bwd_two_kernel"] == 0
+    assert counts["vq_assign"] == vq_per_step * steps
+    assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == 0
+    return out, argv, counts
+
+
+def profile_train_step(dev, loop_cls, argv, name: str, gn_per_step: int, vq_per_step: int):
+    """Resume the run in argv's directory and profile one train step: its
+    kernel launches by class, asserted for the GroupNorm and VQ kernels."""
+    loop = loop_cls(loop_cls.arg_parser().parse_args(argv))
+    assert loop.resume
+    batch = loop.to_device(next(iter(loop.data_loader)))
+    generator = step_generator(0, 10**6, dev)
+    launches, counts = profile_call(lambda: loop.train_step(batch, generator),
+                                    f"{name} train step", grad=True)
+    assert counts.get("groupnorm stats + fold (CUDA)") == gn_per_step, counts
+    assert counts.get("groupnorm apply (Triton)") == gn_per_step, counts
+    assert counts.get("groupnorm backward (CUDA)") == gn_per_step, counts
+    assert counts.get("vq assign (CUDA)", 0) == vq_per_step, counts
+    print(f"  {name} train step: {launches} kernel launches")
+    del loop
+
+
+def train_step_card_vs_cpu(dev):
+    """One full-width VQ-VAE training forward and backward (unet64
+    predictor, unet128 encoder, f32, TF32 off) at batch 1 of 16384 samples
+    (the multiple of the downsample rate 256 nearest 1 s) on the card,
+    through the kernels, and on the CPU, through their plain versions,
+    from the same seeded weights and draws: the same codes, the loss
+    within 1e-4 relative and each parameter's gradient within 1e-3 of its
+    largest entry plus 1e-6 of the largest gradient (a bias before a
+    GroupNorm has a true gradient of 0)."""
+    torch.backends.cudnn.allow_tf32 = False
+    model = VQVAE(pred_name="unet", base_channels=64, enc_name="unet128", num_labels=3)
+    seed_weights(model, 11)
+    t = 16384
+    gen = torch.Generator().manual_seed(12)
+    x = torch.from_numpy(speech_like(21, t))[None, :, None]
+    with torch.no_grad():
+        enc = model.encode_raw(x)
+        model.vq.dictionary.copy_(enc.mean(dim=(0, 1)) + model.vq.dictionary * enc.std())
+    draws = dict(ts=torch.tensor([0.4]), epsilon=torch.randn(1, t, 1, generator=gen))
+
+    def step(device):
+        m = copy.deepcopy(model).to(device)
+        t0 = time.perf_counter()
+        out = m.losses(x.to(device), labels=torch.tensor([1], device=device), train=True,
+                       **{k: v.to(device) for k, v in draws.items()})
+        loss = out["mse"] + out["vq_loss"]
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in m.named_parameters()}
+        print(f"  full-width train step on {device}: {time.perf_counter() - t0:.3f} s")
+        return loss.item(), out["idxs"].cpu(), grads
+
+    cpu_loss, cpu_idxs, cpu_grads = step(torch.device("cpu"))
+    reset_counts()
+    loss, idxs, grads = step(dev)
+    counts = read_counts()
+    torch.backends.cudnn.allow_tf32 = True
+    top = max(g.abs().max().item() for g in cpu_grads.values())
+    worst, worst_name = 0.0, None
+    for n, want in cpu_grads.items():
+        err = (grads[n] - want).abs().max().item() / (want.abs().max().item() + 1e-3 * top)
+        if err > worst:
+            worst, worst_name = err, n
+    rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    print(f"train step card vs CPU, full width, batch 1 x {t}: loss {loss:.6f} vs "
+          f"{cpu_loss:.6f} (rel {rel:.3g}, limit 1e-4), codes equal "
+          f"{torch.equal(idxs, cpu_idxs)} ({cpu_idxs.unique().numel()} distinct), worst "
+          f"gradient leaf {worst_name}: {worst:.3g} of its scale (limit 1e-3), {len(grads)} "
+          f"leaves, launches {counts}")
+    assert torch.equal(idxs, cpu_idxs)
+    assert rel <= 1e-4 and worst <= 1e-3
+    assert counts["group_norm_backward"] == GN_PER_PREDICTOR + GN_PER_ENCODER128
+    assert counts["vq_assign"] == 1
+
+
+def training_paths(dev, workdir: str, smi: str):
+    """The train CLIs at full width, each run's launches counted, a
+    profiled step of each, and one step held against the CPU. Returns
+    {run name: counts}."""
+    gn_vqvae = GN_PER_PREDICTOR + GN_PER_ENCODER128
+    runs = {}
+    for name, cli, loop_cls, argv, steps, gn_step, vq_step in (
+        ("vqvae bf16", train_vqvae, VQVAETrainLoop, TRAIN_VQVAE_ARGV + ["--bf16"],
+         TRAIN_STEPS, gn_vqvae, 1),
+        ("vqvae f32", train_vqvae, VQVAETrainLoop, TRAIN_VQVAE_ARGV, TRAIN_STEPS, gn_vqvae, 1),
+        ("diffusion bf16", train_diffusion, DiffusionTrainLoop, TRAIN_DIFFUSION_ARGV, 5,
+         GN_PER_PREDICTOR, 0),
+    ):
+        out, full_argv, runs[name] = training_run(dev, workdir, name, cli, argv, steps,
+                                                  gn_step, vq_step, smi)
+        profile_train_step(dev, loop_cls, full_argv, name, gn_step, vq_step)
+        shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    train_step_card_vs_cpu(dev)
+    return runs
 
 
 def main() -> int:
@@ -1174,6 +1458,7 @@ def main() -> int:
     kernels = check_group_norm(dev, gen) + [check_vq(dev, gen)]
     torch.cuda.empty_cache()
     kernels.append(check_group_norm_backward(dev, gen))
+    check_group_norm_training_grads(dev, gen)
     kernels += check_fused_resblock(dev, gen)
     check_tickets("the kernel checks")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for serving
@@ -1198,7 +1483,15 @@ def main() -> int:
         serving_time(dev, ckpt, clips, smi)
         sampling_serving_time(dev, uncond_ckpt, smi)
         guided_serving_time(dev, ckpt, uncond_ckpt, ep_ckpt, clf_ckpt, clips, smi)
-    check_tickets("the main paths and serving")
+        check_tickets("the main paths and serving")
+        print(f"phase 4: {time.perf_counter() - t_start:.1f} s")
+        # Training last: its runs and profiles come after the serving
+        # phases' profiler checks, as they did before training was ported.
+        training = training_paths(dev, workdir, smi)
+        print("training launches, all runs: " + ", ".join(
+            f"{k} {sum(c[k] for c in training.values())}" for k in (
+                "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
+    check_tickets("the training paths")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -352,3 +352,52 @@ def test_group_norm_function_matches_plain_autograd(cuda_gen, dtype, tol):
         else:
             scale = v.grad.float().abs().max().item()
             assert (k.grad.float() - v.grad.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(16, 64, 64000), (16, 128, 64000), (16, 512, 250)])
+def test_group_norm_training_grads_match_plain_autograd(cuda_gen, dtype, tol, shape):
+    """A training step's GroupNorm: x, the float32 affine and the FiLM pair
+    (the halves of a ResBlock's cond_proj of the step's embedding, in the
+    compute dtype) all require grad, with GELU, at the flagship's training
+    shapes (the unet128 encoder's and unet64's first levels, two and four
+    channels a group, and a deep level). Through GroupNormFunction, every
+    gradient down to the projection's float32 weight and bias and the
+    embedding is autograd's through the plain versions, within the
+    dtype's tolerance of its largest entry."""
+    n, c, _ = shape
+    groups, emb_ch = 32, 256
+    x0 = (torch.randn(shape, generator=cuda_gen, device="cuda") + 0.5).to(dtype)
+    w0 = torch.rand(c, generator=cuda_gen, device="cuda") + 0.5
+    b0 = 0.1 * torch.randn(c, generator=cuda_gen, device="cuda")
+    pw0 = torch.randn(2 * c, emb_ch, generator=cuda_gen, device="cuda") / emb_ch ** 0.5
+    pb0 = 0.1 * torch.randn(2 * c, generator=cuda_gen, device="cuda")
+    emb0 = torch.randn(n, emb_ch, generator=cuda_gen, device="cuda").to(dtype)
+    dy = torch.randn(shape, generator=cuda_gen, device="cuda").to(dtype)
+
+    def grads(kernel: bool):
+        x, w, b, pw, pb, emb = (v.clone().requires_grad_() for v in (x0, w0, b0, pw0, pb0, emb0))
+        film = tuple(torch.nn.functional.linear(torch.nn.functional.gelu(emb), pw.to(dtype),
+                                                pb.to(dtype)).chunk(2, dim=-1))
+        if kernel:
+            y = gn.group_norm(x, w, b, groups, 1e-5, True, film)
+            assert "GroupNormFunction" in type(y.grad_fn).__name__
+        else:
+            coeffs = gn.group_norm_coeffs_plain(x, groups, w, b, 1e-5, film)
+            y = gn.group_norm_apply_plain(x, *coeffs, True)
+        y.backward(dy)
+        return [v.grad for v in (x, w, b, pw, pb, emb)]
+
+    launches = gn.group_norm_backward.launches
+    got = grads(True)
+    assert gn.group_norm_backward.launches > launches
+    want = grads(False)
+    assert _rel_err(got[0], want[0]) <= tol
+    for g, v in zip(got, want):
+        assert g.dtype == v.dtype and g.shape == v.shape
+        scale = v.float().abs().max().item()
+        assert scale > 0
+        assert (g.float() - v.float()).abs().max().item() <= tol * scale
+    for buf in ticket_buffers():
+        assert not buf.any()

@@ -10,8 +10,8 @@ parameters sit at the JAX checkpoint's paths (``stem/...``, ``head/...``;
 differentiates it with respect to its input only, so its GroupNorms take
 the backward kernel for dx alone. It always loads unfused, since the fused
 ResBlock pair has no backward. Warm-starting a classifier from a diffusion
-predictor (``load_from_predictor``) belongs to training and is not ported
-yet.
+predictor (``load_from_predictor``) belongs to the classifier's train
+loop, which is not ported yet.
 """
 
 from typing import Any, Dict, Optional, Sequence

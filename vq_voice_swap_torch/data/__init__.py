@@ -7,6 +7,8 @@ from .audio_io import (
     read_audio_input,
     read_wav_mono,
 )
+from .datasets import ChirpDataset, ToneDataset
+from .loader import DataLoader, create_data_loader
 
 __all__ = [
     "ChunkWriter",
@@ -16,4 +18,8 @@ __all__ = [
     "encode_u_law",
     "read_audio_input",
     "read_wav_mono",
+    "ChirpDataset",
+    "ToneDataset",
+    "DataLoader",
+    "create_data_loader",
 ]

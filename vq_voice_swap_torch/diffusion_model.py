@@ -2,13 +2,14 @@
 (counterpart of ``vq_voice_swap_tpu/diffusion_model.py``; label surgery
 comes in a later slice)."""
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .diffusion import Diffusion, make_schedule
 from .model_base import ModelBase, register_model
 from .models import make_predictor
+from .models.layers import Dropout
 
 __all__ = ["DiffusionModel"]
 
@@ -17,8 +18,9 @@ __all__ = ["DiffusionModel"]
 class DiffusionModel(ModelBase):
     """The predictor module plus the diffusion process it is sampled with.
 
-    ``dropout`` and ``remat`` are training settings, kept so checkpoints
-    round-trip between the packages; this serving port runs neither.
+    ``dropout`` is the predictor's dropout rate in a training forward
+    (``train=True``). ``remat`` (rematerialisation in the backward) is kept
+    so checkpoints round-trip between the packages and is not run.
     ``act_int8_min_t`` (int8 activation storage) is not ported.
     ``fuse_levels`` is a serving option of the UNet predictor (see
     ``UNetPredictor``), set at load time and never saved.
@@ -84,8 +86,17 @@ class DiffusionModel(ModelBase):
         ts: torch.Tensor,
         cond: Optional[torch.Tensor] = None,
         labels: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        dropout_masks: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
-        return self.predictor(x, ts, cond=cond, labels=labels)
+        """A training forward (``train``) of a model with dropout draws its
+        masks from ``generator``, or takes ``dropout_masks`` (one bool
+        keep-mask per ResBlock, [N, C, T], in call order)."""
+        dropout = None
+        if train and self.dropout:
+            dropout = Dropout(self.dropout, generator, dropout_masks)
+        return self.predictor(x, ts, cond=cond, labels=labels, dropout=dropout)
 
     def losses(
         self,
@@ -94,16 +105,21 @@ class DiffusionModel(ModelBase):
         ts: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        train: bool = False,
+        dropout_masks: Optional[Sequence[torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-element diffusion MSE; returns (losses, ts). ``ts``/``noise``
-        are drawn from ``generator`` when not given."""
+        """Per-element diffusion MSE; returns (losses, ts). ``ts``, ``noise``
+        and, in a training forward, the dropout masks are drawn from
+        ``generator`` when not given."""
         if ts is None:
             ts = torch.rand(
                 (x.shape[0],), generator=generator, device=x.device
             )
         losses = self.diffusion.ddpm_losses(
             x,
-            lambda s, t: self.predict_eps(s, t, labels=labels),
+            lambda s, t: self.predict_eps(s, t, labels=labels, train=train,
+                                          generator=generator,
+                                          dropout_masks=dropout_masks),
             ts=ts,
             noise=noise,
             generator=generator,

@@ -9,7 +9,7 @@ compute ``dtype``. GroupNorm statistics are float32 whatever the dtype.
 """
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +31,7 @@ __all__ = [
     "nearest_upsample_1d",
     "nearest_resize_1d",
     "ResBlock",
+    "Dropout",
 ]
 
 
@@ -169,6 +170,30 @@ def nearest_resize_1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
     return torch.index_select(x, -1, torch.floor(pos).long())
 
 
+class Dropout:
+    """The dropout of one training forward, in ResBlock call order: each
+    call keeps an element where its uniform draw from ``generator`` is
+    below 1 - rate (as flax's ``nn.Dropout`` keeps it) and scales the kept
+    ones by 1 / (1 - rate). ``masks`` (bool keep-masks of each call's
+    shape, in call order) replace the draws."""
+
+    def __init__(self, rate: float, generator: Optional[torch.Generator] = None,
+                 masks: Optional[Sequence[torch.Tensor]] = None):
+        if not 0.0 < rate < 1.0:
+            raise ValueError(f"dropout rate must be in (0, 1), got {rate}")
+        self.keep_prob = 1.0 - rate
+        self.generator = generator
+        self.masks = None if masks is None else iter(masks)
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        if self.masks is not None:
+            keep = next(self.masks).to(h.device)
+        else:
+            keep = torch.rand(h.shape, generator=self.generator,
+                              device=h.device) < self.keep_prob
+        return torch.where(keep, h / self.keep_prob, torch.zeros_like(h))
+
+
 class ResBlock(nn.Module):
     """The UNet residual block: [GroupNorm+GELU, resize, conv3, GroupNorm]
     -> optional FiLM h*(a+1)+b from an embedding -> [GELU, dilated conv3];
@@ -176,8 +201,8 @@ class ResBlock(nn.Module):
     scale_factor 1.0 = identity, 0.5 = avg-pool x2, 2.0 = nearest x2 up.
 
     ``norm_mid`` carries the GELU that follows the FiLM, so norm, FiLM and
-    GELU are one apply kernel. Dropout is identity at inference and is not
-    part of this serving port.
+    GELU are one apply kernel; a training forward's ``Dropout`` follows it,
+    before ``conv_out``.
     """
 
     def __init__(
@@ -210,7 +235,8 @@ class ResBlock(nn.Module):
         return nearest_upsample_1d(x, int(round(self.scale_factor)))
 
     def forward(
-        self, x: torch.Tensor, emb: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, emb: Optional[torch.Tensor] = None,
+        dropout: Optional[Dropout] = None,
     ) -> torch.Tensor:
         if (emb is not None) != (self.cond_proj is not None):
             raise ValueError("pass an embedding iff the block was built with one")
@@ -219,7 +245,10 @@ class ResBlock(nn.Module):
         if emb is not None:
             cond_a, cond_b = linear(gelu(emb), self.cond_proj).chunk(2, dim=-1)
             film = (cond_a, cond_b)
-        h = self.conv_out(self.norm_mid(h, film))
+        h = self.norm_mid(h, film)
+        if dropout is not None:
+            h = dropout(h)
+        h = self.conv_out(h)
         skip = self._resize(x)
         if self.skip_proj is not None:
             skip = self.skip_proj(skip)

@@ -22,6 +22,7 @@ from torch import nn
 from ..ops.fused_resblock import fusable, fused_resblock
 from .layers import (
     Conv1d,
+    Dropout,
     GroupNorm,
     ResBlock,
     TimeEmbedding,
@@ -139,11 +140,16 @@ class UNetPredictor(nn.Module):
         ts: torch.Tensor,
         cond: Optional[torch.Tensor] = None,
         labels: Optional[torch.Tensor] = None,
+        dropout: Optional[Dropout] = None,
     ) -> torch.Tensor:
+        """``dropout`` (a training forward's draws) runs in every block,
+        which must then all be unfused."""
         if (labels is None) != (self.num_labels is None):
             raise ValueError("pass labels iff the model is class-conditional")
         if (cond is None) != (self.cond_channels is None):
             raise ValueError("pass a cond sequence iff the model is conditional")
+        if dropout is not None and self.fuse_levels:
+            raise ValueError("dropout runs only unfused (fuse_levels=0)")
         dtype = self.dtype or torch.float32
 
         emb = linear(gelu(self.time_embed(ts, dtype)), self.time_embed_extra)
@@ -156,7 +162,7 @@ class UNetPredictor(nn.Module):
             h = h + nearest_resize_1d(c, h.shape[-1])
 
         def run(b: ResBlock, r: str, h: torch.Tensor) -> torch.Tensor:
-            return b(h, emb) if r == _PLAIN else fused_resblock(b, h, emb)
+            return b(h, emb, dropout) if r == _PLAIN else fused_resblock(b, h, emb)
 
         routes = iter(self.routes)
         skips = [h]

@@ -1,0 +1,92 @@
+"""Plain-text training log with save sentinels and resume truncation
+(counterpart of ``vq_voice_swap_tpu/observe/logger.py``, whose
+``read_log`` reads what this one writes).
+
+Lines are ``step N: k=v k=v ...`` with five decimals; a ``# saved`` line
+follows each checkpoint. On resume the log is truncated just past the
+newest save record and ``start_step`` is the last step logged before it.
+The JAX package's asynchronous saves also write ``# saving @ N`` markers,
+each confirmed by a later ``# saved``: the resume scan reads them as it
+does (this port saves synchronously and writes none).
+"""
+
+import re
+from typing import Tuple
+
+__all__ = ["Logger", "SAVED_MSG"]
+
+SAVED_MSG = "# saved\n"
+
+
+def _scan_resume_point(path: str) -> Tuple[int, int, bool]:
+    """One byte-exact pass over a log: (resume_step, keep_bytes,
+    from_marker). A ``# saved`` line confirms the oldest unconfirmed
+    ``# saving @ N`` marker if there is one (resume at N, keeping the bytes
+    before the marker: ``from_marker``), else the save of the last step
+    logged before it (keeping the bytes through it). Without a sentinel
+    the whole file is kept and the last step wins."""
+    sentinel = SAVED_MSG.encode()
+    step_re = re.compile(rb"^step (\d+):")
+    saving_re = re.compile(rb"^# saving @ (\d+)$")
+    last_step = 0
+    offset = 0
+    keep = None
+    pending = []
+    with open(path, "rb") as f:
+        for raw in f:
+            start = offset
+            offset += len(raw)
+            if raw == sentinel:
+                keep = (pending.pop(0) + (True,) if pending
+                        else (last_step, offset, False))
+                continue
+            m = saving_re.match(raw.rstrip(b"\n"))
+            if m is not None:
+                pending.append((int(m.group(1)), start))
+                continue
+            m = step_re.match(raw)
+            if m is not None:
+                last_step = int(m.group(1))
+    return keep if keep is not None else (last_step, offset, False)
+
+
+class Logger:
+    """Write metrics to a file and stdout; resumable with truncation."""
+
+    def __init__(self, out_filename: str, resume: bool = False):
+        self.start_step = 0
+        if not resume:
+            self.out_file = open(out_filename, "w+")
+            return
+        try:
+            step, keep_bytes, from_marker = _scan_resume_point(out_filename)
+        except FileNotFoundError:
+            # Without the log the step count is unknown: restarting at 0
+            # would replay step 0's draws on step N's weights.
+            raise RuntimeError(
+                f"resuming from a checkpoint but its log is missing ({out_filename}); "
+                "warm-start an external checkpoint with --pretrained-path into a "
+                "fresh --output-dir instead"
+            )
+        self.start_step = step
+        self.out_file = open(out_filename, "r+")
+        self.out_file.seek(keep_bytes)
+        self.out_file.truncate()
+        if from_marker:
+            # Re-seal the kept region, so that a second resume lands here too.
+            self.out_file.write(SAVED_MSG)
+            self.out_file.flush()
+
+    def log(self, step: int, **kwargs) -> None:
+        fields = " ".join(f"{k}={v:.05f}" for k, v in kwargs.items())
+        line = f"step {step + self.start_step}: {fields}"
+        self.out_file.write(line + "\n")
+        self.out_file.flush()
+        print(line)
+
+    def mark_save(self) -> None:
+        self.out_file.write(SAVED_MSG)
+        self.out_file.flush()
+
+    def close(self) -> None:
+        self.out_file.close()

@@ -1,0 +1,133 @@
+"""The train step (counterpart of ``vq_voice_swap_tpu/train/steps.py``):
+microbatch gradient accumulation with a weighted remainder, the optimizer
+update, the VQ codebook maintenance and the EMAs.
+
+A batch that does not divide into microbatches is accumulated as the JAX
+package accumulates it: ``microbatches`` equal chunks and one remainder
+chunk, each chunk's gradient, loss and ``extra`` metrics weighted by its
+share of the batch; the chunks' ``used`` masks are OR-ed and their per-row
+outputs concatenated. After the update the codebook's usage counts decay
+by the number of forwards (used codes go to dead_rate), ``codebook_used``
+counts the live codes, and dead codes are revived from the step's encoder
+outputs when the rule says so; then the EMAs follow the new parameters.
+"""
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..vq import revive_dead_codes, update_usage
+from .ema import EMA
+from .state import Optimizer
+
+__all__ = ["LossFn", "TrainStep", "VQUpdateRule"]
+
+# loss_fn(batch, generator, draws) -> (scalar loss, aux): aux holds "mses"
+# and "ts" (per row), "extra" ({name: scalar}) and, for a VQ model, "idxs",
+# "used" and "enc_flat". ``draws`` are keyword arguments of the model's
+# losses that replace its random draws (empty in training).
+LossFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator], Dict[str, Any]],
+                  Tuple[torch.Tensor, Dict[str, Any]]]
+
+
+@dataclass(frozen=True)
+class VQUpdateRule:
+    """How the train step maintains the VQ codebook's usage counts."""
+
+    dead_rate: int
+    revive: bool  # revive dead codes after each update
+
+
+class TrainStep:
+    """(batch, generator) -> metrics: one optimizer step of ``model``.
+
+    ``microbatches`` is the number of full chunks and ``micro_remainder``
+    the size of a trailing partial one (0: none). Metrics stay on the
+    device: "loss", "mses", "ts", "extra" and, with a ``vq_rule``,
+    "codebook_used"."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        loss_fn: LossFn,
+        optimizer: Optimizer,
+        emas: Sequence[EMA] = (),
+        microbatches: int = 1,
+        micro_remainder: int = 0,
+        vq_rule: Optional[VQUpdateRule] = None,
+    ):
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.emas = list(emas)
+        self.microbatches = microbatches
+        self.micro_remainder = micro_remainder
+        self.vq_rule = vq_rule
+
+    @property
+    def n_forwards(self) -> int:
+        return self.microbatches + (1 if self.micro_remainder else 0)
+
+    def chunks(self, batch: Dict[str, torch.Tensor]) -> List[Tuple[float, Dict[str, torch.Tensor]]]:
+        """(weight, sub-batch) of each forward."""
+        if self.microbatches == 1 and not self.micro_remainder:
+            return [(1.0, batch)]
+        size = next(iter(batch.values())).shape[0]
+        full = size - self.micro_remainder
+        micro, rem = divmod(full, self.microbatches)
+        if rem:
+            raise ValueError(f"batch {size} != {self.microbatches}x{micro}"
+                             f"+{self.micro_remainder}")
+        bounds = [(i * micro, (i + 1) * micro) for i in range(self.microbatches)]
+        if self.micro_remainder:
+            bounds.append((full, size))
+        return [((hi - lo) / size, {k: v[lo:hi] for k, v in batch.items()})
+                for lo, hi in bounds]
+
+    def __call__(
+        self,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator],
+        draws: Optional[Sequence[Dict[str, Any]]] = None,
+        revive_picks: Optional[torch.Tensor] = None,
+    ) -> Dict[str, Any]:
+        """``draws`` (one dict per forward) and ``revive_picks`` replace
+        the step's random draws from ``generator``."""
+        self.optimizer.zero_grad()
+        loss = 0.0
+        extra: Dict[str, torch.Tensor] = {}
+        auxes = []
+        for i, (weight, mb) in enumerate(self.chunks(batch)):
+            mb_loss, aux = self.loss_fn(mb, generator, draws[i] if draws else {})
+            (mb_loss if weight == 1.0 else mb_loss * weight).backward()
+            loss = loss + mb_loss.detach() * weight
+            for k, v in aux["extra"].items():
+                extra[k] = extra.get(k, 0.0) + v.detach() * weight
+            auxes.append(aux)
+        self.optimizer.step()
+
+        def cat(key):
+            return torch.cat([a[key] for a in auxes])
+
+        metrics = {"loss": loss, "mses": cat("mses"), "ts": cat("ts"), "extra": extra}
+        if self.vq_rule is not None:
+            with torch.no_grad():
+                vq = self.model.vq
+                used = auxes[0]["used"]
+                for a in auxes[1:]:
+                    used = used | a["used"]
+                usage = update_usage(vq.usage_count, cat("idxs"), self.vq_rule.dead_rate,
+                                     decay=self.n_forwards, used=used)
+                # Liveness before revival refills the dead codes.
+                metrics["codebook_used"] = (usage > 0).sum()
+                if self.vq_rule.revive:
+                    dictionary, usage = revive_dead_codes(
+                        vq.dictionary, usage, cat("enc_flat"), self.vq_rule.dead_rate,
+                        generator, revive_picks)
+                    vq.dictionary.copy_(dictionary)
+                vq.usage_count.copy_(usage)
+        for ema in self.emas:
+            ema.update(self.model)
+        return metrics

@@ -1,10 +1,11 @@
 """VQ-VAE with a diffusion decoder, for speaker conversion (counterpart of
-``vq_voice_swap_tpu/vq_vae.py``: encode, embed, and decode with the DDPM,
-DDIM and DPM++ samplers, with encoder-predictor guidance or classifier-free
-guidance; the training losses come in a later slice)."""
+``vq_voice_swap_tpu/vq_vae.py``): the training losses (encoder, optional
+temporal jitter, VQ, the VQ loss and the conditional diffusion MSE), and
+encode, embed, and decode with the DDPM, DDIM and DPM++ samplers, with
+encoder-predictor guidance or classifier-free guidance."""
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -13,9 +14,23 @@ from .diffusion.warp import TimeWarp
 from .diffusion_model import DiffusionModel
 from .model_base import register_model
 from .models import make_encoder
-from .vq import Codebook, vq_forward
+from .vq import Codebook, VQLossConfig, vq_forward, vq_loss_fn
 
-__all__ = ["VQVAE"]
+__all__ = ["VQVAE", "jitter_seq"]
+
+
+def jitter_seq(seq: torch.Tensor, p: float, nums: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Temporal jitter (https://arxiv.org/abs/1901.08810) of seq [N, T, C]:
+    each timestep takes its left neighbour's value where its uniform draw
+    (``nums`` [N, T, 1], else from ``generator``) is below p / 2, its right
+    neighbour's where it is below p, with the edges repeated."""
+    if nums is None:
+        nums = torch.rand((seq.shape[0], seq.shape[1], 1), generator=generator,
+                          device=seq.device)
+    right = torch.cat([seq[:, :1], seq[:, :-1]], dim=1)
+    left = torch.cat([seq[:, 1:], seq[:, -1:]], dim=1)
+    return torch.where(nums < p / 2, right, torch.where(nums < p, left, seq))
 
 
 @register_model
@@ -67,6 +82,65 @@ class VQVAE(DiffusionModel):
     def encode_raw(self, inputs: torch.Tensor) -> torch.Tensor:
         """Encoder output before quantization: [N, T, 1] -> [N, T1, C]."""
         return self.encoder(inputs)
+
+    def losses(
+        self,
+        inputs: torch.Tensor,
+        labels: Optional[torch.Tensor] = None,
+        vq_loss_cfg: VQLossConfig = VQLossConfig(),
+        jitter: float = 0.0,
+        no_vq_prob: float = 0.0,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        ts: Optional[torch.Tensor] = None,
+        epsilon: Optional[torch.Tensor] = None,
+        jitter_nums: Optional[torch.Tensor] = None,
+        no_vq_nums: Optional[torch.Tensor] = None,
+        dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Training losses of waveforms inputs [N, T, 1]: "vq_loss", "mse",
+        per-element "mses" and their "ts", and for the codebook
+        maintenance "idxs", "used" and "enc_flat" (the detached encoder
+        outputs, [N * T1, C]).
+
+        The random draws, each from ``generator`` unless passed: ``ts``
+        [N] and ``epsilon`` (inputs' shape) of the diffusion loss,
+        ``jitter_nums`` [N, T1, 1] (see ``jitter_seq``), ``no_vq_nums``
+        [N, 1, 1] (a sequence's codes are zeroed where its draw is at most
+        ``no_vq_prob``) and, in a training forward, ``dropout_masks`` (see
+        ``DiffusionModel.predict_eps``)."""
+        dictionary = self.vq.dictionary
+        enc_out = self.encode_raw(inputs)
+        if jitter:
+            enc_out = jitter_seq(enc_out, jitter, jitter_nums, generator)
+        vq_out = vq_forward(dictionary, enc_out)
+        vq_loss = vq_loss_fn(vq_loss_cfg, enc_out, vq_out["embedded"], dictionary)
+
+        n = inputs.shape[0]
+        if ts is None:
+            ts = torch.rand((n,), generator=generator, device=inputs.device)
+        if epsilon is None:
+            epsilon = torch.randn(inputs.shape, generator=generator, dtype=inputs.dtype,
+                                  device=inputs.device)
+        noised = self.diffusion.sample_q(inputs, ts, epsilon=epsilon)
+        cond = vq_out["passthrough"]
+        if no_vq_prob:
+            if no_vq_nums is None:
+                no_vq_nums = torch.rand((n, 1, 1), generator=generator, device=inputs.device)
+            cond = cond * (no_vq_nums > no_vq_prob).to(cond.dtype)
+
+        predictions = self.predict_eps(noised, ts, cond=cond, labels=labels, train=train,
+                                       generator=generator, dropout_masks=dropout_masks)
+        mses = torch.square(predictions - epsilon).reshape(n, -1).mean(dim=1)
+        return {
+            "vq_loss": vq_loss,
+            "mse": mses.mean(),
+            "ts": ts,
+            "mses": mses,
+            "idxs": vq_out["idxs"],
+            "used": vq_out["used"],
+            "enc_flat": enc_out.detach().reshape(-1, enc_out.shape[-1]),
+        }
 
     def encode(self, inputs: torch.Tensor) -> torch.Tensor:
         """Waveform [N, T, 1] -> integer codes [N, T1]."""
