@@ -49,7 +49,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    bf16, x, the affine and the FiLM projection and its input all requiring
    grad: every gradient through GroupNormFunction (the statistics, apply
    and backward kernels) against autograd through the plain versions
-   (1e-4 / 2e-2 of its largest entry). Every ticket counter
+   (1e-4 / 2e-2 of its largest entry); then the add-classes regime at
+   the same shape (x, the affine and the projection frozen, only the
+   embedding trained): dca, dcb and the embedding's gradient. The
+   classifier's widest GroupNorm [16, 32, 64000] (one channel a group,
+   FiLM + GELU) forward, and VQ assign at the WaveGrad VQ-VAE's width
+   (512 channels, 512 codes, 1000 and 16000 rows). Every ticket counter
    (ops/tickets.py) is 0 after this phase, after phase 4 and after the
    last.
 3. Main paths, each with every launch count set to 0 just before it and
@@ -100,7 +105,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    asserted from the profiler; then one full-width VQ-VAE step (f32, TF32
    off, batch 1 x 16384) on the card against the same step on the CPU
    through the plain versions (the same codes, the loss within 1e-4
-   relative, each gradient leaf within 1e-3 of its largest entry).
+   relative, each gradient leaf within 1e-3 of its largest entry). Then,
+   5 steps each in bf16 from the flagship's bf16 checkpoint:
+   ``train_vqvae_add`` (3 -> 6 labels; every parameter leaf but the label
+   table saved bit for bit as the pretrained one, its first rows too;
+   per step 178 statistics and apply, 130 backward, 1 VQ),
+   ``train_vqvae_uncond`` (178 / 178 / 1), ``train_enc_pred`` at base 32
+   (178 forward with the frozen encoder's 47, 131 backward, 1 VQ) and
+   ``train_classifier`` at base 32 (55 each), each with a profiled step;
+   ``train_classifier`` at the diffusion run's width warm-started from its
+   checkpoint for 2 steps (the scalars copied equal the predictor's down
+   path's). Last the WaveGrad VQ-VAE at base 32 (``train_vqvae
+   --predictor wavegrad --encoder wavegrad``, 5 steps in bf16 and f32, a
+   profiled step each: 1 VQ and no GroupNorm launch a step), its f32
+   checkpoint through ``sample_vqvae`` (1 VQ launch, no other), swap
+   serving (encode + 10-step DPM++ of 16 clips, f32) with a profiled
+   predictor call, and a full-width WaveGrad step on the card against the
+   CPU as above.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -108,7 +129,9 @@ without the package beside it, the script exits non-zero and prints no
 result.
 """
 
+import contextlib
 import copy
+import io
 import json
 import os
 import shutil
@@ -129,8 +152,12 @@ from vq_voice_swap_torch import (  # noqa: E402
     sample_diffusion,
     sample_vqvae,
     sample_vqvae_uncond,
+    train_classifier,
     train_diffusion,
+    train_enc_pred,
     train_vqvae,
+    train_vqvae_add,
+    train_vqvae_uncond,
 )
 from vq_voice_swap_torch.classifier_model import (  # noqa: E402
     ClassifierModel,
@@ -145,7 +172,14 @@ from vq_voice_swap_torch.ops import fused_resblock as frb  # noqa: E402
 from vq_voice_swap_torch.ops import group_norm as gn  # noqa: E402
 from vq_voice_swap_torch.ops import vq_assign as vqa  # noqa: E402
 from vq_voice_swap_torch.ops.tickets import ticket_buffers  # noqa: E402
-from vq_voice_swap_torch.train import DiffusionTrainLoop, VQVAETrainLoop  # noqa: E402
+from vq_voice_swap_torch.train import (  # noqa: E402
+    ClassifierTrainLoop,
+    DiffusionTrainLoop,
+    EncoderPredictorTrainLoop,
+    VQVAEAddClassesTrainLoop,
+    VQVAETrainLoop,
+    VQVAEUncondTrainLoop,
+)
 from vq_voice_swap_torch.train.loops import step_generator  # noqa: E402
 from vq_voice_swap_torch.vq_vae import VQVAE  # noqa: E402
 
@@ -204,6 +238,12 @@ def check_group_norm(dev, gen):
         ("deep bf16 film+gelu", (BATCH, 512, 250), torch.bfloat16, True, True, 0.0, 2e-2),
         ("large-mean f32", (BATCH, 64, SAMPLES), torch.float32, False, False, 100.0, 1e-4),
         ("CLI f32 film+gelu", (1, 64, SAMPLES), torch.float32, True, True, 0.0, 1e-4),
+        # The classifier's widest GroupNorms (base 32, first level): one
+        # channel a group.
+        ("classifier f32 film+gelu", (BATCH, 32, SAMPLES), torch.float32, True, True, 0.0,
+         1e-4),
+        ("classifier bf16 film+gelu", (BATCH, 32, SAMPLES), torch.bfloat16, True, True, 0.0,
+         2e-2),
     ]
     err_stats = err_apply = 0.0
     for label, shape, dtype, use_gelu, use_film, offset, atol in cases:
@@ -473,6 +513,34 @@ def check_group_norm_training_grads(dev, gen):
               f"route cluster of 16 blocks: error of each gradient over its largest entry "
               + ", ".join(f"{k} {e:.3g}" for k, e in zip(names, errs)) + f" (limit {tol})")
         assert max(errs) <= tol, errs
+
+        # The add-classes regime: x and the affine frozen, the projection
+        # frozen, only the label embedding (and so the FiLM pair) trained.
+        def film_grads(kernel: bool):
+            emb = emb0.clone().requires_grad_()
+            ca, cb = F.linear(F.gelu(emb), pw0.to(dtype), pb0.to(dtype)).chunk(2, dim=-1)
+            ca.retain_grad()
+            cb.retain_grad()
+            if kernel:
+                y = gn.group_norm(x0, w0, b0, groups, 1e-5, True, (ca, cb))
+                assert "GroupNormFunction" in type(y.grad_fn).__name__
+            else:
+                coeffs = gn.group_norm_coeffs_plain(x0, groups, w0, b0, 1e-5, (ca, cb))
+                y = gn.group_norm_apply_plain(x0, *coeffs, True)
+            y.backward(dy)
+            return [ca.grad, cb.grad, emb.grad]
+
+        launches = gn._bwd_cluster.launches
+        got = film_grads(True)
+        assert gn._bwd_cluster.launches == launches + 1
+        want = film_grads(False)
+        torch.cuda.synchronize()
+        errs = [((g.float() - v.float()).abs().max() / v.float().abs().max()).item()
+                for g, v in zip(got, want)]
+        print(f"groupnorm add-classes gradients {list(shape)} {str(dtype)[6:]} FiLM + GELU, "
+              f"x, affine and projection frozen: error over the largest entry of dca "
+              f"{errs[0]:.3g}, dcb {errs[1]:.3g}, the embedding's {errs[2]:.3g} (limit {tol})")
+        assert max(errs) <= tol, errs
         del x0, dy, got, want
     torch.cuda.empty_cache()
 
@@ -523,6 +591,23 @@ def check_vq(dev, gen):
     print(f"vq exact ties: kernel {idx.tolist()}, plain {pidx.tolist()}")
     assert idx.tolist() == pidx.tolist() == [7, 7, 7, 42, 7]
     assert torch.equal(used, pused)
+
+    # The WaveGrad VQ-VAE's codes: 512 channels, 512 codes, 16000 rows at
+    # batch 16 x 4 s (downsample 64).
+    wg_dictionary = torch.randn(d, 512, generator=gen, device=dev)
+    for b in (SAMPLES // 64, BATCH * SAMPLES // 64):
+        x = torch.randn(b, 512, generator=gen, device=dev)
+        idx, used = vqa.vq_assign(wg_dictionary, x)
+        idx2, used2 = vqa.vq_assign(wg_dictionary, x)
+        pidx, pused = vqa.vq_assign_plain(wg_dictionary, x)
+        torch.cuda.synchronize()
+        gap, rel = _vq_pick_gap(wg_dictionary, x, idx, pidx)
+        differ = int((idx != pidx).sum().item())
+        same_bits = torch.equal(idx, idx2) and torch.equal(used, used2)
+        print(f"vq WaveGrad width B={b} C=512 D={d}: {differ} indices differ from plain, "
+              f"largest gap {gap:.3g} ({rel:.3g} relative), same bits twice {same_bits}")
+        assert rel <= 1e-6 and same_bits and (differ or torch.equal(used, pused))
+        err = max(err, gap)
 
     dn = torch.sum(dictionary * dictionary, dim=-1)
     entry = None
@@ -1040,10 +1125,11 @@ def profile_call(fn, name: str, grad: bool = False):
         counts[cls] = counts.get(cls, 0) + 1
         t, c = by_name.get(key, (0.0, 0))
         by_name[key] = (t + ms, c + 1)
+    to_host = sum("DtoH" in key for key, _ in records)
     print(f"profile {name}, batch {BATCH}: wall {wall_ms:.3f} ms, "
           f"device busy {total:.3f} ms ({100 * total / wall_ms:.1f}%), "
-          f"{len(records)} kernel launches (the profiler lost the device records of "
-          f"{lost} of the {PROFILE_PAD} pad launches before it)")
+          f"{len(records)} kernel launches, {to_host} copies to the host (the profiler "
+          f"lost the device records of {lost} of the {PROFILE_PAD} pad launches before it)")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls}: {ms:.3f} ms ({100 * ms / max(total, 1e-9):.1f}%), "
               f"{counts[cls]} launches")
@@ -1278,8 +1364,28 @@ TRAIN_VQVAE_ARGV = ["tones:40", "--predictor", "unet", "--base-channels", "64",
                     "--encoder", "unet128", "--class-cond", "--batch-size", str(BATCH)]
 TRAIN_DIFFUSION_ARGV = ["tones:40", "--base-channels", "64", "--class-cond",
                         "--batch-size", str(BATCH), "--bf16"]
+# The other train CLIs, from the flagship's checkpoint where they need one,
+# at the JAX CLIs' default widths (base 32) unless said, bf16.
+NEW_RUN_ARGV = ["tones:40", "--batch-size", str(BATCH), "--bf16"]
+# WaveGrad at the JAX CLI's default width (base 32, cond_mult 16: 512-channel
+# codes, 512 of them).
+TRAIN_WAVEGRAD_ARGV = ["tones:40", "--predictor", "wavegrad", "--encoder", "wavegrad",
+                       "--base-channels", "32", "--class-cond", "--batch-size", str(BATCH)]
 TRAIN_STEPS = 8
+NEW_TRAIN_STEPS = 5
 GN_PER_ENCODER128 = 47  # 23 ResBlocks x 2 + out_norm
+GN_PER_ENC_PRED = GN_PER_PREDICTOR  # its UNet is unet-shaped at base 32
+
+
+def _flag(argv, flag: str) -> str:
+    return argv[argv.index(flag) + 1]
+
+
+def per_step(forward: int, backward: int, vq: int):
+    """A train step's launches: GroupNorms run forward (one statistics and
+    one apply launch each), GroupNorms differentiated (one cluster
+    backward each, from the saved statistics) and VQ assigns."""
+    return dict(forward=forward, backward=backward, vq=vq)
 
 
 def _train_log(out: str):
@@ -1294,14 +1400,25 @@ def _train_log(out: str):
     return entries
 
 
-def training_run(dev, workdir: str, name: str, cli, argv, steps: int, gn_per_step: int,
-                 vq_per_step: int, smi: str):
+class _Tee(io.StringIO):
+    """Stdout that is also kept."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+
+def training_run(dev, workdir: str, name: str, cli, argv, steps: int, launches, smi: str):
     """One train CLI run of ``steps`` steps (saved at the last), with the
     launch counts set to 0 just before it; asserts the launches of every
-    kernel of the path and prints samples/s (the median over the steps
-    after two warm-up steps, less the last, whose metrics are fetched at
-    the save) and peak device memory. Returns the run's directory, argv
-    and counts."""
+    kernel of the path (``launches``, per step) and prints samples/s (the
+    median over the steps after two warm-up steps, less the last, whose
+    metrics are fetched at the save) and peak device memory. Returns the
+    run's directory, argv, counts and what the CLI printed."""
     out = os.path.join(workdir, name.replace(" ", "_"))
     argv = argv + ["--max-steps", str(steps), "--save-interval", str(steps),
                    "--output-dir", out, "--device", "cuda"]
@@ -1310,7 +1427,8 @@ def training_run(dev, workdir: str, name: str, cli, argv, steps: int, gn_per_ste
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t0 = time.perf_counter()
-    cli.main(argv)
+    with contextlib.redirect_stdout(_Tee(sys.stdout)) as printed:
+        cli.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
@@ -1320,53 +1438,54 @@ def training_run(dev, workdir: str, name: str, cli, argv, steps: int, gn_per_ste
     assert all(np.isfinite(v) for _, f in log for v in f.values())
     # The last step's metrics are fetched at the save, just after the one before.
     rates = [f["samples_per_sec"] for _, f in log[2:-1]]
+    rate = (f"{float(np.median(rates)):.4f} samples/s (median of steps 3-{steps - 1}: "
+            f"{[round(r, 3) for r in rates]})" if rates else "no steady step")
     print(f"training {name} on {smi}: {steps} steps in {seconds:.3f} s (build, data and "
-          f"save included), {float(np.median(rates)):.4f} samples/s (median of steps "
-          f"3-{steps - 1}: {[round(r, 3) for r in rates]}), peak device memory "
+          f"save included), {rate}, peak device memory "
           f"{peak:.2f} GiB, "
-          f"losses {[round(f['loss'], 4) for _, f in log]}, launches {counts}")
-    if vq_per_step:
+          f"losses {[round(f['loss'], 4) for _, f in log]}, launches {counts}, per step: "
+          + ", ".join(f"{k} {v / steps:g}" for k, v in counts.items() if v))
+    if "codebook_used" in log[0][1]:
         print(f"  codebook_used {[f['codebook_used'] for _, f in log]}")
     for f in ("model.npz", "opt.pt"):
         assert os.path.exists(os.path.join(out, f)), f
-    # Every GroupNorm: statistics + apply forward, one cluster launch backward.
-    n_gn = gn_per_step * steps
-    assert counts["group_norm_coeffs"] == counts["group_norm_apply"] == n_gn
-    assert counts["group_norm_backward"] == counts["_bwd_cluster"] == n_gn
+    assert counts["group_norm_coeffs"] == counts["group_norm_apply"] == \
+        launches["forward"] * steps
+    assert counts["group_norm_backward"] == counts["_bwd_cluster"] == \
+        launches["backward"] * steps
     assert counts["group_norm_stats"] == counts["_bwd_two_kernel"] == 0
-    assert counts["vq_assign"] == vq_per_step * steps
+    assert counts["vq_assign"] == launches["vq"] * steps
     assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == 0
-    return out, argv, counts
+    return out, argv, counts, printed.getvalue()
 
 
-def profile_train_step(dev, loop_cls, argv, name: str, gn_per_step: int, vq_per_step: int):
+def profile_train_step(dev, loop_cls, argv, name: str, launches):
     """Resume the run in argv's directory and profile one train step: its
     kernel launches by class, asserted for the GroupNorm and VQ kernels."""
     loop = loop_cls(loop_cls.arg_parser().parse_args(argv))
     assert loop.resume
-    batch = loop.to_device(next(iter(loop.data_loader)))
+    batch = loop.to_device(loop.prepare_batch(next(iter(loop.data_loader))))
     generator = step_generator(0, 10**6, dev)
-    launches, counts = profile_call(lambda: loop.train_step(batch, generator),
-                                    f"{name} train step", grad=True)
-    assert counts.get("groupnorm stats + fold (CUDA)") == gn_per_step, counts
-    assert counts.get("groupnorm apply (Triton)") == gn_per_step, counts
-    assert counts.get("groupnorm backward (CUDA)") == gn_per_step, counts
-    assert counts.get("vq assign (CUDA)", 0) == vq_per_step, counts
-    print(f"  {name} train step: {launches} kernel launches")
+    n, counts = profile_call(lambda: loop.train_step(batch, generator),
+                             f"{name} train step", grad=True)
+    assert counts.get("groupnorm stats + fold (CUDA)", 0) == launches["forward"], counts
+    assert counts.get("groupnorm apply (Triton)", 0) == launches["forward"], counts
+    assert counts.get("groupnorm backward (CUDA)", 0) == launches["backward"], counts
+    assert counts.get("vq assign (CUDA)", 0) == launches["vq"], counts
+    print(f"  {name} train step: {n} kernel launches")
     del loop
 
 
-def train_step_card_vs_cpu(dev):
-    """One full-width VQ-VAE training forward and backward (unet64
-    predictor, unet128 encoder, f32, TF32 off) at batch 1 of 16384 samples
-    (the multiple of the downsample rate 256 nearest 1 s) on the card,
-    through the kernels, and on the CPU, through their plain versions,
-    from the same seeded weights and draws: the same codes, the loss
-    within 1e-4 relative and each parameter's gradient within 1e-3 of its
-    largest entry plus 1e-6 of the largest gradient (a bias before a
-    GroupNorm has a true gradient of 0)."""
+def train_step_card_vs_cpu(dev, name: str, model_kwargs, launches):
+    """One full-width VQ-VAE training forward and backward (f32, TF32 off)
+    at batch 1 of 16384 samples (a multiple of the downsample rate near
+    1 s) on the card, through the kernels, and on the CPU, through their
+    plain versions, from the same seeded weights and draws: the same codes,
+    the loss within 1e-4 relative and each parameter's gradient within
+    1e-3 of its largest entry plus 1e-6 of the largest gradient (a bias
+    before a GroupNorm has a true gradient of 0)."""
     torch.backends.cudnn.allow_tf32 = False
-    model = VQVAE(pred_name="unet", base_channels=64, enc_name="unet128", num_labels=3)
+    model = VQVAE(**model_kwargs)
     seed_weights(model, 11)
     t = 16384
     gen = torch.Generator().manual_seed(12)
@@ -1384,7 +1503,7 @@ def train_step_card_vs_cpu(dev):
         loss = out["mse"] + out["vq_loss"]
         loss.backward()
         grads = {n: p.grad.cpu() for n, p in m.named_parameters()}
-        print(f"  full-width train step on {device}: {time.perf_counter() - t0:.3f} s")
+        print(f"  full-width {name} train step on {device}: {time.perf_counter() - t0:.3f} s")
         return loss.item(), out["idxs"].cpu(), grads
 
     cpu_loss, cpu_idxs, cpu_grads = step(torch.device("cpu"))
@@ -1399,36 +1518,187 @@ def train_step_card_vs_cpu(dev):
         if err > worst:
             worst, worst_name = err, n
     rel = abs(loss - cpu_loss) / abs(cpu_loss)
-    print(f"train step card vs CPU, full width, batch 1 x {t}: loss {loss:.6f} vs "
+    print(f"train step card vs CPU, full-width {name}, batch 1 x {t}: loss {loss:.6f} vs "
           f"{cpu_loss:.6f} (rel {rel:.3g}, limit 1e-4), codes equal "
           f"{torch.equal(idxs, cpu_idxs)} ({cpu_idxs.unique().numel()} distinct), worst "
           f"gradient leaf {worst_name}: {worst:.3g} of its scale (limit 1e-3), {len(grads)} "
           f"leaves, launches {counts}")
     assert torch.equal(idxs, cpu_idxs)
     assert rel <= 1e-4 and worst <= 1e-3
-    assert counts["group_norm_backward"] == GN_PER_PREDICTOR + GN_PER_ENCODER128
-    assert counts["vq_assign"] == 1
+    assert counts["group_norm_backward"] == launches["backward"]
+    assert counts["group_norm_coeffs"] == launches["forward"]
+    assert counts["vq_assign"] == launches["vq"]
 
 
-def training_paths(dev, workdir: str, smi: str):
-    """The train CLIs at full width, each run's launches counted, a
-    profiled step of each, and one step held against the CPU. Returns
-    {run name: counts}."""
+def _params_npz(path: str):
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files if k.startswith("params/")}
+
+
+def _pred_down_path_size(ckpt: str) -> int:
+    """The scalars of a UNet predictor's in_conv, time embeddings and down
+    blocks: what a classifier stem of the same widths takes from it."""
+    predictor = DiffusionModel.load(ckpt, device="cpu").predictor
+    return sum(p.numel() for n, p in predictor.named_parameters()
+               if n.split(".")[0] in ("in_conv", "time_embed", "time_embed_extra",
+                                      "down_blocks"))
+
+
+def guidance_training_paths(dev, workdir: str, flagship: str, diffusion: str, smi: str):
+    """The four train CLIs that start from a trained model or train a
+    guidance network, each a run of its own with its launches asserted and
+    a profiled step. Returns {run name: counts}."""
     gn_vqvae = GN_PER_PREDICTOR + GN_PER_ENCODER128
+    steps = NEW_TRAIN_STEPS
+    pretrained = ["--class-cond", "--pretrained-path", flagship]
     runs = {}
-    for name, cli, loop_cls, argv, steps, gn_step, vq_step in (
-        ("vqvae bf16", train_vqvae, VQVAETrainLoop, TRAIN_VQVAE_ARGV + ["--bf16"],
-         TRAIN_STEPS, gn_vqvae, 1),
-        ("vqvae f32", train_vqvae, VQVAETrainLoop, TRAIN_VQVAE_ARGV, TRAIN_STEPS, gn_vqvae, 1),
-        ("diffusion bf16", train_diffusion, DiffusionTrainLoop, TRAIN_DIFFUSION_ARGV, 5,
-         GN_PER_PREDICTOR, 0),
+    for name, cli, loop_cls, argv, n_steps, launches in (
+        # Only the label table trains: the predictor's first GroupNorm
+        # (down block 0's norm_in) sees neither a trained input nor a
+        # trained affine, so it runs forward alone; every later one is
+        # downstream of the labels' FiLM, and the encoder is frozen.
+        ("vqvae add-classes bf16", train_vqvae_add, VQVAEAddClassesTrainLoop,
+         NEW_RUN_ARGV + pretrained, steps, per_step(gn_vqvae, GN_PER_PREDICTOR - 1, 1)),
+        ("vqvae uncond bf16", train_vqvae_uncond, VQVAEUncondTrainLoop,
+         NEW_RUN_ARGV + pretrained, steps, per_step(gn_vqvae, gn_vqvae, 1)),
+        # The frozen VQ-VAE's encode runs its encoder's GroupNorms forward.
+        ("enc-pred bf16", train_enc_pred, EncoderPredictorTrainLoop,
+         NEW_RUN_ARGV + ["--vq-vae-path", flagship], steps,
+         per_step(GN_PER_ENC_PRED + GN_PER_ENCODER128, GN_PER_ENC_PRED, 1)),
+        ("classifier bf16", train_classifier, ClassifierTrainLoop, NEW_RUN_ARGV, steps,
+         per_step(GN_PER_CLASSIFIER, GN_PER_CLASSIFIER, 0)),
+        # At the diffusion run's width (unet64), from its checkpoint.
+        ("classifier warm bf16", train_classifier, ClassifierTrainLoop,
+         NEW_RUN_ARGV + ["--base-channels", _flag(TRAIN_DIFFUSION_ARGV, "--base-channels"),
+                         "--pretrained-path", diffusion], 2,
+         per_step(GN_PER_CLASSIFIER, GN_PER_CLASSIFIER, 0)),
     ):
-        out, full_argv, runs[name] = training_run(dev, workdir, name, cli, argv, steps,
-                                                  gn_step, vq_step, smi)
-        profile_train_step(dev, loop_cls, full_argv, name, gn_step, vq_step)
+        out, full_argv, runs[name], printed = training_run(
+            dev, workdir, name, cli, argv, n_steps, launches, smi)
+        if "warm" in name:
+            want = _pred_down_path_size(diffusion)
+            assert f"loaded {want} pre-trained parameters" in printed, want
+            print(f"  classifier warm start: {want} scalars copied from the diffusion "
+                  f"predictor's down path, as its shapes give")
+        else:
+            profile_train_step(dev, loop_cls, full_argv, name, launches)
+        if "add-classes" in name:
+            before, after = _params_npz(flagship), _params_npz(
+                os.path.join(out, "model.npz"))
+            table = "params/predictor/class_embed/embedding"
+            assert before.keys() == after.keys()
+            same = [k for k in before if k != table and np.array_equal(before[k], after[k])]
+            assert len(same) == len(before) - 1, sorted(set(before) - set(same))
+            labels = before[table].shape[0]
+            assert np.array_equal(after[table][:labels], before[table])
+            moved = np.abs(after[table][labels:] - before[table][:1]).max()
+            print(f"  add-classes: {len(same)} of {len(before)} parameter leaves equal to the "
+                  f"pretrained ones bit for bit; the label table grew {labels} -> "
+                  f"{after[table].shape[0]} rows, its first {labels} unchanged")
+            assert moved > 0
         shutil.rmtree(out)
+    return runs
+
+
+def wavegrad_paths(dev, workdir: str, clips: np.ndarray, smi: str):
+    """The WaveGrad VQ-VAE at the JAX CLI's default width: train_vqvae in
+    bf16 and f32, its checkpoint through sample_vqvae, swap serving in f32,
+    and one full-width step on the card against the CPU. Returns
+    {run name: counts}."""
+    runs = {}
+    launches = per_step(0, 0, 1)  # no GroupNorm in this family
+    ckpt = None
+    for name, argv in (("wavegrad vqvae bf16", TRAIN_WAVEGRAD_ARGV + ["--bf16"]),
+                       ("wavegrad vqvae f32", TRAIN_WAVEGRAD_ARGV)):
+        out, full_argv, runs[name], _ = training_run(
+            dev, workdir, name, train_vqvae, argv, NEW_TRAIN_STEPS, launches, smi)
+        profile_train_step(dev, VQVAETrainLoop, full_argv, name, launches)
+        ckpt = os.path.join(out, "model.npz")
+
+    src = os.path.join(workdir, "in.wav")
+    out_wav = os.path.join(workdir, "out_wavegrad.wav")
+    reset_counts()
+    t0 = time.perf_counter()
+    sample_vqvae.main(["--label", "1", "--input-file", src, "--sample-steps", "10",
+                       "--sampler", "dpmpp", "--device", "cuda", ckpt, out_wav])
+    torch.cuda.synchronize()
+    counts = runs["wavegrad sample_vqvae"] = read_counts()
+    frames, data = _wav_frames(out_wav)
+    print(f"wavegrad sample_vqvae 10-step DPM++: {time.perf_counter() - t0:.3f} s, {frames} "
+          f"samples, peak {np.abs(data).max()}, launches {counts}")
+    assert frames == SAMPLES and np.isfinite(data).all()
+    assert counts["vq_assign"] == 1
+    assert sum(v for k, v in counts.items() if k != "vq_assign") == 0
+
+    model = VQVAE.load(ckpt, device=dev)
+    audio = torch.from_numpy(clips[:, :, None]).to(dev)
+    labels = torch.arange(BATCH, device=dev) % model.num_labels
+
+    def swap():
+        with torch.no_grad():
+            return model.decode(model.encode(audio), labels=labels, steps=10,
+                                sampler="dpmpp", constrain=True,
+                                generator=torch.Generator(device=dev).manual_seed(0))
+
+    swap()  # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = swap()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    assert out.shape == (BATCH, SAMPLES, 1) and torch.isfinite(out).all()
+    seconds = sorted(times)[1]
+    print(f"serving wavegrad f32 on {smi}: encode + 10-step DPM++ decode of {BATCH} x 4 s "
+          f"clips, median {seconds:.4f} s of {[round(r, 4) for r in times]}, real-time "
+          f"factor {BATCH * 4 / seconds:.2f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(BATCH, SAMPLES, 1, generator=gen, device=dev)
+    cond = torch.randn(BATCH, SAMPLES // 64, model.cond_channels, generator=gen, device=dev)
+    ts = torch.full((BATCH,), 0.5, device=dev)
+    n, _ = profile_call(lambda: model.predict_eps(x, ts, cond, labels),
+                        "wavegrad f32 predictor call")
+    print(f"  wavegrad predictor call: {n} kernel launches")
+    del model, audio, out
     torch.cuda.empty_cache()
-    train_step_card_vs_cpu(dev)
+    train_step_card_vs_cpu(dev, "wavegrad", dict(
+        pred_name="wavegrad", base_channels=32, enc_name="wavegrad", num_labels=3), launches)
+    return runs
+
+
+def training_paths(dev, workdir: str, clips: np.ndarray, smi: str):
+    """The train CLIs at full width, each run's launches counted, a
+    profiled step of each, and one step held against the CPU; then the
+    other train CLIs from the flagship's and the diffusion run's
+    checkpoints, and the WaveGrad family. Returns {run name: counts}."""
+    gn_vqvae = GN_PER_PREDICTOR + GN_PER_ENCODER128
+    runs, kept = {}, {}
+    for name, cli, loop_cls, argv, steps, launches in (
+        ("vqvae bf16", train_vqvae, VQVAETrainLoop, TRAIN_VQVAE_ARGV + ["--bf16"],
+         TRAIN_STEPS, per_step(gn_vqvae, gn_vqvae, 1)),
+        ("vqvae f32", train_vqvae, VQVAETrainLoop, TRAIN_VQVAE_ARGV, TRAIN_STEPS,
+         per_step(gn_vqvae, gn_vqvae, 1)),
+        ("diffusion bf16", train_diffusion, DiffusionTrainLoop, TRAIN_DIFFUSION_ARGV, 5,
+         per_step(GN_PER_PREDICTOR, GN_PER_PREDICTOR, 0)),
+    ):
+        out, full_argv, runs[name], _ = training_run(dev, workdir, name, cli, argv, steps,
+                                                     launches, smi)
+        profile_train_step(dev, loop_cls, full_argv, name, launches)
+        kept[name] = os.path.join(out, "model.npz")
+    torch.cuda.empty_cache()
+    train_step_card_vs_cpu(dev, "unet64 + unet128", dict(
+        pred_name="unet", base_channels=64, enc_name="unet128", num_labels=3),
+        per_step(gn_vqvae, gn_vqvae, 1))
+    t0 = time.perf_counter()
+    runs.update(guidance_training_paths(dev, workdir, kept["vqvae bf16"],
+                                        kept["diffusion bf16"], smi))
+    print(f"the other train CLIs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs.update(wavegrad_paths(dev, workdir, clips, smi))
+    print(f"wavegrad: {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -1487,7 +1757,7 @@ def main() -> int:
         print(f"phase 4: {time.perf_counter() - t_start:.1f} s")
         # Training last: its runs and profiles come after the serving
         # phases' profiler checks, as they did before training was ported.
-        training = training_paths(dev, workdir, smi)
+        training = training_paths(dev, workdir, clips, smi)
         print("training launches, all runs: " + ", ".join(
             f"{k} {sum(c[k] for c in training.values())}" for k in (
                 "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))

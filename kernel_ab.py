@@ -116,7 +116,7 @@ def seed_weights(model: torch.nn.Module, seed: int) -> None:
             elif p.ndim >= 2:
                 scale = 0.3 if ".conv_out." in name else 1.0
                 p.copy_(noise * scale / math.sqrt(p[0].numel()))
-            elif name.endswith("norm.weight"):
+            elif "norm" in name and name.endswith("weight"):  # GroupNorm, LayerNorm
                 p.copy_(1.0 + 0.1 * noise)
             else:
                 p.copy_(0.1 * noise)

@@ -6,6 +6,8 @@ runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
 
+import copy
+
 import pytest
 import torch
 
@@ -401,3 +403,129 @@ def test_group_norm_training_grads_match_plain_autograd(cuda_gen, dtype, tol, sh
         assert (g.float() - v.float()).abs().max().item() <= tol * scale
     for buf in ticket_buffers():
         assert not buf.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(16, 128, 64000), (2, 64, 3000)])
+def test_group_norm_add_classes_regime_matches_plain_autograd(cuda_gen, dtype, tol, shape):
+    """The add-classes fine-tuning regime: x and the float32 affine frozen
+    (no grad), only the FiLM pair (driven by the trained label embedding)
+    requiring grad, FiLM + GELU. Through GroupNormFunction, dca and dcb are
+    autograd's through the plain versions within the dtype's tolerance of
+    their largest entry."""
+    n, c, _ = shape
+    groups = 32
+    x = (torch.randn(shape, generator=cuda_gen, device="cuda") + 0.5).to(dtype)
+    w = torch.rand(c, generator=cuda_gen, device="cuda") + 0.5
+    b = 0.1 * torch.randn(c, generator=cuda_gen, device="cuda")
+    ca0, cb0 = (0.3 * torch.randn(n, c, generator=cuda_gen, device="cuda")).to(dtype), \
+        (0.3 * torch.randn(n, c, generator=cuda_gen, device="cuda")).to(dtype)
+    dy = torch.randn(shape, generator=cuda_gen, device="cuda").to(dtype)
+
+    def grads(kernel: bool):
+        ca, cb = ca0.clone().requires_grad_(), cb0.clone().requires_grad_()
+        if kernel:
+            y = gn.group_norm(x, w, b, groups, 1e-5, True, (ca, cb))
+            assert "GroupNormFunction" in type(y.grad_fn).__name__
+        else:
+            coeffs = gn.group_norm_coeffs_plain(x, groups, w, b, 1e-5, (ca, cb))
+            y = gn.group_norm_apply_plain(x, *coeffs, True)
+        y.backward(dy)
+        return ca.grad, cb.grad
+
+    launches = gn.group_norm_backward.launches
+    got = grads(True)
+    assert gn.group_norm_backward.launches > launches
+    for g, v in zip(got, grads(False)):
+        assert g.dtype == v.dtype == dtype and g.shape == v.shape == (n, c)
+        scale = v.float().abs().max().item()
+        assert scale > 0 and (g.float() - v.float()).abs().max().item() <= tol * scale
+    assert not x.requires_grad and not w.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1000, 16000])
+def test_vq_kernel_matches_plain_at_wavegrad_width(cuda_gen, rows):
+    """The WaveGrad VQ-VAE's codes: 512 channels, 512 codes, 16000 rows at
+    batch 16 x 4 s: within the tie criterion of the plain version, the same
+    bits twice, the used mask the picked codes."""
+    d = torch.randn(512, 512, generator=cuda_gen, device="cuda")
+    x = torch.randn(rows, 512, generator=cuda_gen, device="cuda")
+    idx, used = vqa.vq_assign(d, x)
+    idx2, used2 = vqa.vq_assign(d, x)
+    assert torch.equal(idx, idx2) and torch.equal(used, used2)
+    pidx, _ = vqa.vq_assign_plain(d, x)
+    for i in torch.nonzero(idx != pidx).flatten().tolist():
+        a = ((x[i].double() - d[idx[i]].double()) ** 2).sum()
+        b = ((x[i].double() - d[pidx[i]].double()) ** 2).sum()
+        assert (a - b).abs() <= 1e-6 * torch.maximum(a, b), i
+    mask = torch.zeros_like(used)
+    mask[idx.long()] = 1
+    assert torch.equal(used, mask)
+
+
+def _seeded(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every layer live: weights ~ N(0, 1/fan_in), norm scales near 1."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            noise = torch.randn(p.shape, generator=gen)
+            if p.ndim >= 2:
+                p.copy_(noise / p[0].numel() ** 0.5)
+            elif "norm" in name and name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * noise)
+            else:
+                p.copy_(0.1 * noise)
+    return model
+
+
+@pytest.mark.cuda
+def test_classifier_train_step_on_the_card_matches_the_cpu(cuda_gen):
+    """A classifier NLL forward and backward at base 4 (55 GroupNorms, f32,
+    TF32 off) on the card, through the GroupNorm kernels, against the CPU's
+    plain versions: the loss within 1e-4 relative, each gradient leaf within
+    1e-3 of its largest entry plus 1e-6 of the largest gradient."""
+    from vq_voice_swap_torch.classifier_model import ClassifierModel
+
+    model = _seeded(ClassifierModel(num_labels=3, base_channels=4), 1)
+    gen = torch.Generator().manual_seed(2)
+    x = 0.5 * torch.tanh(torch.randn(2, 1024, 1, generator=gen))
+    ts, labels = torch.tensor([0.2, 0.7]), torch.tensor([2, 0])
+
+    def step(device):
+        m = copy.deepcopy(model).to(device)
+        logp = torch.nn.functional.log_softmax(m(x.to(device), ts.to(device)), dim=-1)
+        loss = -torch.gather(logp, -1, labels.to(device)[:, None]).mean()
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()}
+
+    launches = gn.group_norm_backward.launches
+    loss, grads = step(torch.device("cuda"))
+    assert gn.group_norm_backward.launches > launches + 50
+    want_loss, want = step(torch.device("cpu"))
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    top = max(g.abs().max().item() for g in want.values())
+    for n, w in want.items():
+        assert (grads[n] - w).abs().max().item() <= 1e-3 * w.abs().max().item() + 1e-6 * top, n
+
+
+@pytest.mark.cuda
+def test_wavegrad_forward_on_the_card_matches_the_cpu(cuda_gen):
+    """The WaveGrad predictor (conditional, labelled) and encoder at base 4,
+    f32 with TF32 off, on the card against the CPU within 1e-4."""
+    from vq_voice_swap_torch.models.wavegrad import WaveGradEncoder, WaveGradPredictor
+
+    gen = torch.Generator().manual_seed(3)
+    x = 0.5 * torch.tanh(torch.randn(2, 2048, 1, generator=gen))
+    cond = torch.randn(2, 32, 16, generator=gen)
+    ts, labels = torch.tensor([0.3, 0.8]), torch.tensor([1, 2])
+    predictor = _seeded(WaveGradPredictor(4, 4, num_labels=3), 4)
+    encoder = _seeded(WaveGradEncoder(4, 4), 5)
+    with torch.no_grad():
+        want = (predictor(x, ts, cond, labels), encoder(x))
+        predictor, encoder = predictor.cuda(), encoder.cuda()
+        got = (predictor(x.cuda(), ts.cuda(), cond.cuda(), labels.cuda()), encoder(x.cuda()))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())

@@ -21,6 +21,7 @@ from vq_voice_swap_torch.models import layers as tl
 from vq_voice_swap_torch.models.mfcc_encoder import ConvMFCCEncoder
 from vq_voice_swap_torch.models.registry import make_encoder, make_predictor
 from vq_voice_swap_torch.models.unet import UNetEncoder, UNetPredictor
+from vq_voice_swap_torch.models.wavegrad import WaveGradEncoder, WaveGradPredictor
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -177,7 +178,9 @@ def test_conv_mfcc_encoder(kwargs):
 def test_registry_names_and_wavegrad():
     assert isinstance(make_encoder("unet128-dilated", base_channels=2), UNetEncoder)
     assert make_encoder("conv-mfcc-linear", base_channels=2).input_ulaw is False
-    with pytest.raises(NotImplementedError):
-        make_encoder("wavegrad")
-    with pytest.raises(NotImplementedError):
-        make_predictor("wavegrad")
+    assert isinstance(make_encoder("wavegrad", base_channels=2), WaveGradEncoder)
+    assert isinstance(make_predictor("wavegrad", base_channels=2), WaveGradPredictor)
+    with pytest.raises(ValueError, match="unknown encoder"):
+        make_encoder("wavernn")
+    with pytest.raises(ValueError, match="unknown predictor"):
+        make_predictor("wavernn")

@@ -41,6 +41,17 @@ from vq_voice_swap_torch.observe.logger import _scan_resume_point
 from vq_voice_swap_torch.train import VQVAETrainLoop
 from vq_voice_swap_torch.vq_vae import VQVAE
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """CPU training at base 2-4 is thousands of tiny ops a step: one
+    intra-op thread runs it about as fast as eight alone, and does not
+    spin against the other test workers for the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 VQVAE_ARGS = ["--device", "cpu", "--base-channels", "2", "--batch-size", "2",
               "--class-cond", "--ema-rate", "0.99,0.9", "--save-interval", "2",
               "--jitter", "0.1", "tones"]

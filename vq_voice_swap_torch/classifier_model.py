@@ -6,12 +6,12 @@ guidance. Each is its module and a ``ModelBase`` at once, so its
 parameters sit at the JAX checkpoint's paths (``stem/...``, ``head/...``;
 ``unet/...``, ``out_proj/...``).
 
-``load`` returns a frozen model (``requires_grad_(False)``): guidance
+``load`` returns a frozen model (``requires_grad_(False)``) unless asked
+for a trainable one (``frozen=False``, as the train loops resume): guidance
 differentiates it with respect to its input only, so its GroupNorms take
 the backward kernel for dx alone. It always loads unfused, since the fused
-ResBlock pair has no backward. Warm-starting a classifier from a diffusion
-predictor (``load_from_predictor``) belongs to the classifier's train
-loop, which is not ported yet.
+ResBlock pair has no backward. ``ClassifierModel.load_from_predictor``
+warm-starts a classifier's stem from a diffusion predictor's down path.
 """
 
 from typing import Any, Dict, Optional, Sequence
@@ -30,11 +30,12 @@ _CHANNEL_MULT = (1, 1, 2, 2, 2, 4, 4, 8, 8)
 
 
 class _GuidanceModel(ModelBase):
-    """Loads frozen."""
+    """Loads frozen unless ``frozen=False``; always unfused."""
 
     @classmethod
-    def load(cls, path: str, dtype: Optional[str] = None, device=None) -> "ModelBase":
-        return super().load(path, dtype=dtype, device=device).requires_grad_(False)
+    def load(cls, path: str, dtype: Optional[str] = None, device=None,
+             frozen: bool = True) -> "ModelBase":
+        return super().load(path, dtype=dtype, device=device, frozen=frozen)
 
 
 @register_model
@@ -69,6 +70,33 @@ class ClassifierModel(Classifier, _GuidanceModel):
             depth_mult=self.depth_mult,
             dtype=self.dtype_name,
         )
+
+    def load_from_predictor(self, predictor: torch.nn.Module) -> int:
+        """Warm-start the stem from a UNet predictor's down path (the JAX
+        package's ``load_from_predictor``): its ``in_conv``, ``time_embed``
+        and ``time_embed_extra``, and ``down_blocks.i`` as ``block.i`` while
+        the stem has that block. A shape that differs raises. Returns the
+        number of scalars copied."""
+        dst = self.state_dict()
+        copied = {}
+        for name, value in predictor.state_dict().items():
+            head, _, rest = name.partition(".")
+            if head in ("in_conv", "time_embed", "time_embed_extra"):
+                path = f"stem.{name}"
+            elif head == "down_blocks":
+                path = f"stem.block.{rest}"
+            else:
+                continue
+            if path not in dst:
+                continue  # the predictor's down path is longer than the stem
+            if value.shape != dst[path].shape:
+                raise ValueError(
+                    f"predictor parameter {path} has shape {tuple(value.shape)} but the "
+                    f"classifier stem expects {tuple(dst[path].shape)}; do the "
+                    f"--base-channels/--channel-mult match the pretrained predictor?")
+            copied[path] = value
+        self.load_state_dict(copied, strict=False)
+        return sum(v.numel() for v in copied.values())
 
     def cond_fn(self, labels: torch.Tensor, scale: float) -> CondFn:
         """Classifier guidance: scale * d/dx sum_i log p(labels_i | x_i, t)

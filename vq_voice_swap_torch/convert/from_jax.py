@@ -8,8 +8,8 @@ a rule rather than a table:
   ``down_blocks_3`` -> ``down_blocks.3``, ``res_3_0`` -> ``res_3.0``;
 - leaves: flax conv ``kernel`` (K, C_in, C_out) -> ``weight``
   (C_out, C_in, K); Dense ``kernel`` (in, out) -> Linear ``weight``
-  (out, in); GroupNorm ``scale`` -> ``weight``; Embed ``embedding`` ->
-  ``weight``; every other leaf keeps its name and layout.
+  (out, in); GroupNorm and LayerNorm ``scale`` -> ``weight``; Embed
+  ``embedding`` -> ``weight``; every other leaf keeps its name and layout.
 
 ``params_to_jax`` is the inverse, read off the module types.
 """
@@ -75,7 +75,7 @@ def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
                 if leaf == "weight" and isinstance(module, (nn.Conv1d, nn.Linear)):
                     leaf = "kernel"
                     arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
-                elif leaf == "weight" and isinstance(module, nn.GroupNorm):
+                elif leaf == "weight" and isinstance(module, (nn.GroupNorm, nn.LayerNorm)):
                     leaf = "scale"
                 elif leaf == "weight" and isinstance(module, nn.Embedding):
                     leaf = "embedding"

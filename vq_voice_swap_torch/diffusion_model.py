@@ -1,8 +1,9 @@
 """DiffusionModel: an epsilon-predictor bundled with its diffusion process
-(counterpart of ``vq_voice_swap_tpu/diffusion_model.py``; label surgery
-comes in a later slice)."""
+(counterpart of ``vq_voice_swap_tpu/diffusion_model.py``), with the label
+surgery that grows a class-conditional model's label space."""
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+import os
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -11,7 +12,48 @@ from .model_base import ModelBase, register_model
 from .models import make_predictor
 from .models.layers import Dropout
 
-__all__ = ["DiffusionModel"]
+__all__ = ["DiffusionModel", "add_labels_to_params", "label_param_paths"]
+
+# Parameter names that end in a per-label embedding table.
+_LABEL_LEAF_SUFFIXES = ("class_embed.weight",  # UNetPredictor
+                        "label_emb.weight")  # WaveGrad FiLM layers
+
+
+def label_param_paths(names: Iterable[str]) -> List[str]:
+    """The label-embedding tables among parameter names (flax
+    ``class_embed/embedding`` and ``label_emb/embedding``)."""
+    return [n for n in names
+            if any(n == s or n.endswith("." + s) for s in _LABEL_LEAF_SUFFIXES)]
+
+
+def add_labels_to_params(
+    state: Dict[str, torch.Tensor],
+    n: int,
+    end: bool = True,
+    generator: Optional[torch.Generator] = None,
+    new_rows: Optional[Dict[str, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Grow every label-embedding table of a state dict by n rows, after the
+    existing rows (end=True) or before them (end=False). The new rows are
+    ``new_rows[name]`` where given, else standard normal from ``generator``
+    (a CPU generator), which defaults to fresh OS entropy, as the JAX
+    package's does: two surgeries must not give two new speakers the same
+    rows."""
+    targets = label_param_paths(state)
+    if not targets:
+        raise ValueError("model has no label embeddings to grow")
+    if generator is None:
+        generator = torch.Generator().manual_seed(int.from_bytes(os.urandom(8), "little") >> 1)
+    out = dict(state)
+    for name in targets:
+        table = state[name]
+        if new_rows is not None:
+            rows = new_rows[name]
+        else:
+            rows = torch.randn((n, table.shape[-1]), generator=generator, dtype=table.dtype)
+        rows = rows.to(table.device, table.dtype)
+        out[name] = torch.cat([table, rows] if end else [rows, table])
+    return out
 
 
 @register_model
@@ -58,6 +100,7 @@ class DiffusionModel(ModelBase):
             base_channels=base_channels,
             cond_channels=cond_channels,
             num_labels=num_labels,
+            dropout=dropout,
             dtype=self.compute_dtype,
             fuse_levels=fuse_levels,
         )
@@ -125,3 +168,27 @@ class DiffusionModel(ModelBase):
             generator=generator,
         )
         return losses, ts
+
+    # ------------------------------------------------------- label surgery
+
+    def add_labels(
+        self,
+        n: int,
+        end: bool = True,
+        generator: Optional[torch.Generator] = None,
+        new_rows: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> "DiffusionModel":
+        """A copy of this class-conditional model with n more labels, its
+        label tables grown by ``add_labels_to_params``, on the same device."""
+        if self.num_labels is None:
+            raise ValueError("model must be class-conditional")
+        kwargs = self.save_kwargs()
+        kwargs["num_labels"] = self.num_labels + n
+        grown = type(self)(**kwargs)
+        grown.load_state_dict(add_labels_to_params(self.state_dict(), n, end=end,
+                                                   generator=generator, new_rows=new_rows))
+        return grown.to(next(self.parameters()).device)
+
+    def label_parameter_paths(self) -> List[str]:
+        """The names of the predictor's label-embedding tables."""
+        return label_param_paths(name for name, _ in self.named_parameters())

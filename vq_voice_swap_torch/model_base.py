@@ -46,14 +46,15 @@ class ModelBase(nn.Module):
     @classmethod
     def load(
         cls, path: str, dtype: Optional[str] = None, device=None,
-        fuse_levels: int = 0,
+        fuse_levels: int = 0, frozen: bool = False,
     ) -> "ModelBase":
         """Rebuild the model a checkpoint describes, on ``device`` (CUDA
         unless named). The class comes from the manifest and must be ``cls``
         or a subclass. ``dtype`` overrides the saved compute dtype (params
         stay float32), e.g. "bfloat16" for serving; ``fuse_levels`` > 0
         runs the UNet predictor's first levels through the fused ResBlock
-        kernels. Neither is written back by ``save``."""
+        kernels. Neither is written back by ``save``. ``frozen`` loads the
+        parameters with ``requires_grad`` off."""
         class_name, kwargs, flat = load_checkpoint(path)
         _ensure_registered()
         model_cls = _REGISTRY.get(class_name)
@@ -70,4 +71,4 @@ class ModelBase(nn.Module):
         device = resolve_device(device)
         model = model_cls(**kwargs)
         model.load_state_dict(params_from_jax(flat))
-        return model.to(device).eval()
+        return model.to(device).eval().requires_grad_(not frozen)

@@ -1,16 +1,20 @@
 """Fresh-model initialisation that mirrors flax's defaults, as the JAX
 package initialises a new training run (``layers.py``, ``unet.py``,
-``mfcc_encoder.py``, ``vq.py``, ``vq_vae.py`` there):
+``mfcc_encoder.py``, ``wavegrad.py``, ``classifier.py``, ``vq.py``,
+``vq_vae.py`` there):
 
 - convolution and dense kernels: lecun-normal, drawn as flax draws it
   from a normal truncated at +-2 standard deviations, scaled to a
   variance of 1 / fan_in; biases 0;
-- GroupNorm: weight 1, bias 0;
-- label embeddings: normal with variance 1 / features (``nn.Embed``);
+- GroupNorm and LayerNorm: weight 1, bias 0;
+- label embeddings: normal with variance 1 / features (``nn.Embed``),
+  but a WaveGrad FiLM's ``label_emb`` zero;
 - the VQ codebook: standard normal (its usage counter starts at
   dead_rate when the model is built);
-- each ResBlock's ``conv_out`` and the MFCC encoder's ``out_conv`` zero,
-  each ResBlock's ``cond_proj`` lecun-normal scaled by 0.1.
+- each ResBlock's ``conv_out``, the MFCC encoder's and the WaveGrad
+  predictor's ``out_conv`` and the classifier's ``head`` zero; each
+  ResBlock's ``cond_proj`` and each FiLM's ``out_conv`` lecun-normal
+  scaled by 0.1.
 
 The draws come from one CPU generator, so a seed gives the same weights
 on any device.
@@ -22,8 +26,10 @@ import torch
 from torch import nn
 
 from ..vq import Codebook
+from .classifier import Classifier
 from .layers import ResBlock
 from .mfcc_encoder import ConvMFCCEncoder
+from .wavegrad import FiLM, WaveGradPredictor
 
 __all__ = ["init_like_flax", "lecun_normal_"]
 
@@ -52,7 +58,7 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.Embedding):
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
                            / math.sqrt(m.embedding_dim))
-        elif isinstance(m, nn.GroupNorm):
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, Codebook):
@@ -62,5 +68,11 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
             m.conv_out.conv.weight.zero_()
             if m.cond_proj is not None:
                 m.cond_proj.weight.mul_(0.1)
-        elif isinstance(m, ConvMFCCEncoder):
+        elif isinstance(m, (ConvMFCCEncoder, WaveGradPredictor)):
             m.out_conv.conv.weight.zero_()
+        elif isinstance(m, FiLM):
+            m.out_conv.conv.weight.mul_(0.1)
+            if m.num_labels is not None:
+                m.label_emb.weight.zero_()
+        elif isinstance(m, Classifier):
+            m.head.weight.zero_()

@@ -1,6 +1,7 @@
 """Name-based model factories (counterpart of
-``vq_voice_swap_tpu/models/registry.py``). The ``wavegrad`` predictor and
-encoder are not ported yet."""
+``vq_voice_swap_tpu/models/registry.py``): predictors "unet" | "wavegrad";
+encoders "unet" | "unet128" | "unet128-dilated" | "wavegrad" |
+"conv-mfcc-ulaw" | "conv-mfcc-ulaw-v2" | "conv-mfcc-linear"."""
 
 from typing import Optional
 
@@ -9,10 +10,9 @@ from torch import nn
 
 from .mfcc_encoder import ConvMFCCEncoder
 from .unet import UNetEncoder, UNetPredictor
+from .wavegrad import WaveGradEncoder, WaveGradPredictor
 
 __all__ = ["make_predictor", "make_encoder"]
-
-_WAVEGRAD = "wavegrad is not ported yet; a later slice of the port adds it"
 
 
 def make_predictor(
@@ -20,11 +20,13 @@ def make_predictor(
     base_channels: int = 32,
     num_labels: Optional[int] = None,
     cond_channels: Optional[int] = None,
+    dropout: float = 0.0,
     dtype: Optional[torch.dtype] = None,
     fuse_levels: int = 0,
 ) -> nn.Module:
     """Create an epsilon-predictor module from a human-readable name;
-    ``fuse_levels`` is UNetPredictor's serving option."""
+    ``fuse_levels`` is UNetPredictor's serving option. ``dropout`` is run
+    by the caller (``DiffusionModel.predict_eps``); wavegrad has none."""
     if pred_name == "unet":
         return UNetPredictor(
             base_channels=base_channels,
@@ -34,7 +36,19 @@ def make_predictor(
             fuse_levels=fuse_levels,
         )
     if pred_name == "wavegrad":
-        raise NotImplementedError(_WAVEGRAD)
+        if dropout:
+            raise ValueError("dropout is not supported for wavegrad")
+        if fuse_levels:
+            raise ValueError("fuse_levels is a unet option; wavegrad has no fused blocks")
+        if cond_channels and cond_channels % base_channels:
+            raise ValueError(f"wavegrad cond_channels ({cond_channels}) must be a multiple "
+                             f"of base_channels ({base_channels})")
+        return WaveGradPredictor(
+            base_channels=base_channels,
+            cond_mult=cond_channels // base_channels if cond_channels else 16,
+            num_labels=num_labels,
+            dtype=dtype,
+        )
     raise ValueError(f"unknown predictor: {pred_name}")
 
 
@@ -73,5 +87,5 @@ def make_encoder(
             input_ulaw=False, dtype=dtype,
         )
     if enc_name == "wavegrad":
-        raise NotImplementedError(_WAVEGRAD)
+        return WaveGradEncoder(base_channels=base_channels, cond_mult=cond_mult, dtype=dtype)
     raise ValueError(f"unknown encoder: {enc_name}")

@@ -1,6 +1,8 @@
 """Training loops on one device (counterpart of the JAX package's
-``TrainLoop``, ``DiffusionTrainLoop`` and ``VQVAETrainLoop`` in
-``vq_voice_swap_tpu/train/loops.py``).
+``vq_voice_swap_tpu/train/loops.py``): ``DiffusionTrainLoop``,
+``VQVAETrainLoop``, ``VQVAEAddClassesTrainLoop`` (new speakers' label
+embeddings alone), ``VQVAEUncondTrainLoop`` (classifier-free guidance
+fine-tuning), ``ClassifierTrainLoop`` and ``EncoderPredictorTrainLoop``.
 
 A loop creates or resumes the model, its EMAs and the optimizer from
 ``--output-dir``, then runs one train step per batch. Step N draws from
@@ -26,12 +28,16 @@ import sys
 import time
 from abc import ABC, abstractmethod
 from collections import deque
-from typing import Callable, Dict, List, Optional, Tuple
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..classifier_model import ClassifierModel, EncoderPredictorModel
 from ..data import create_data_loader
+from ..diffusion import Diffusion, make_schedule
 from ..diffusion_model import DiffusionModel
 from ..model_base import ModelBase
 from ..models.init import init_like_flax
@@ -43,7 +49,16 @@ from .ema import EMA
 from .state import build_optimizer, prefix_predicate
 from .steps import LossFn, TrainStep, VQUpdateRule
 
-__all__ = ["DiffusionTrainLoop", "TrainLoop", "VQVAETrainLoop", "step_generator"]
+__all__ = [
+    "ClassifierTrainLoop",
+    "DiffusionTrainLoop",
+    "EncoderPredictorTrainLoop",
+    "TrainLoop",
+    "VQVAEAddClassesTrainLoop",
+    "VQVAETrainLoop",
+    "VQVAEUncondTrainLoop",
+    "step_generator",
+]
 
 # The JAX package's flags that the port does not run, and why.
 NOT_PORTED = {
@@ -73,6 +88,22 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     """The generator of global step ``step``, seeded from (seed, step) alone."""
     state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) >> 1)
+
+
+def copy_intersection(model: torch.nn.Module, src: torch.nn.Module, source: str) -> int:
+    """Copy into ``model`` the parameters and buffers of ``src`` that share
+    a name with its own (their shapes must agree); returns the number of
+    scalars copied."""
+    src_state = src.state_dict()
+    copied = {}
+    for name, value in model.state_dict().items():
+        if name in src_state:
+            if src_state[name].shape != value.shape:
+                raise ValueError(f"parameter {name} has shape {tuple(value.shape)} in "
+                                 f"the model but {tuple(src_state[name].shape)} in {source}")
+            copied[name] = src_state[name]
+    model.load_state_dict(copied, strict=False)
+    return sum(v.numel() for v in copied.values())
 
 
 def repeat_dataset(loader):
@@ -113,8 +144,11 @@ class TrainLoop(ABC):
             lr_anneal_steps=args.lr_anneal_steps, grad_clip=args.grad_clip)
         if os.path.exists(self.opt_path()):
             print("loading optimizer state from checkpoint...")
+            # Read to the CPU: AdamW moves the moments to their parameters'
+            # device and leaves each step count where it finds it, and a
+            # count on the card would cost two host syncs a parameter a step.
             self.optimizer.load_state_dict(
-                torch.load(self.opt_path(), map_location=self.device, weights_only=True))
+                torch.load(self.opt_path(), map_location="cpu", weights_only=True))
 
         self.logger = Logger(self.path("train_log.txt"), resume=self.resume)
         self.tracker = LossTracker()
@@ -152,14 +186,19 @@ class TrainLoop(ABC):
         """Run one train step; fetch the metrics of the step
         --pipeline-depth steps back; save on the interval."""
         generator = step_generator(self.rng_seed, self.total_steps, self.device)
+        device_batch = self.to_device(self.prepare_batch(batch))
         dispatched = time.perf_counter()
-        metrics = self.train_step(self.to_device(batch), generator)
+        metrics = self.train_step(device_batch, generator)
         self._pending.append((self.loop_steps, metrics, dispatched))
         while len(self._pending) > max(1, self.args.pipeline_depth):
             self._flush_one()
         if (self.total_steps + 1) % self.args.save_interval == 0:
             self._flush_pending()  # the '# saved' line follows this step's line
             self.save()
+
+    def prepare_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Hook to change the host batch (label offsets, curriculum scalars)."""
+        return batch
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The batch on the device, through pinned memory on CUDA."""
@@ -205,10 +244,11 @@ class TrainLoop(ABC):
     def opt_path(self) -> str:
         return self.path("opt.pt")
 
-    def create_model(self) -> Tuple[DiffusionModel, bool]:
+    def create_model(self) -> Tuple[ModelBase, bool]:
         if os.path.exists(self.checkpoint_path()):
             print("loading from checkpoint...")
-            model = self.model_class().load(self.checkpoint_path(), device=self.device)
+            model = self.model_class().load(self.checkpoint_path(), device=self.device,
+                                            frozen=False)
             resume = True
         else:
             print("creating new model")
@@ -227,17 +267,7 @@ class TrainLoop(ABC):
         --pretrained-path checkpoint's (their shapes must agree); returns
         the number of scalars copied."""
         src = self.check_pretrained(ModelBase.load(self.args.pretrained_path, device="cpu"))
-        src_state = src.state_dict()
-        copied = {}
-        for name, value in model.state_dict().items():
-            if name in src_state:
-                if src_state[name].shape != value.shape:
-                    raise ValueError(f"parameter {name} has shape {tuple(value.shape)} in "
-                                     f"the model but {tuple(src_state[name].shape)} in "
-                                     f"{self.args.pretrained_path}")
-                copied[name] = src_state[name]
-        model.load_state_dict(copied, strict=False)
-        return sum(v.numel() for v in copied.values())
+        return copy_intersection(model, src, self.args.pretrained_path)
 
     def check_pretrained(self, src: ModelBase) -> ModelBase:
         return src
@@ -288,7 +318,7 @@ class TrainLoop(ABC):
         """The ModelBase subclass this loop trains."""
 
     @abstractmethod
-    def create_new_model(self) -> DiffusionModel:
+    def create_new_model(self) -> ModelBase:
         """A fresh model on the CPU (the loop initialises its weights)."""
 
     @abstractmethod
@@ -403,17 +433,41 @@ class VQVAETrainLoop(DiffusionTrainLoop):
         model.dead_rate = self.args.dead_rate  # a runtime setting, not a weight
         return model, resume
 
+    @contextmanager
+    def _pretrained_loaded(self) -> Iterator[VQVAE]:
+        """Load --pretrained-path once for create_model: it sets the label
+        count and kwargs that the label-surgery loops build their model
+        from, and their load_from_pretrained grows it; the copy is dropped
+        on exit."""
+        if not self.args.pretrained_path:
+            raise ValueError("must load from a pre-trained VQVAE (--pretrained-path)")
+        if not self.args.class_cond:
+            raise ValueError("must train a class-conditional model (--class-cond)")
+        pretrained = VQVAE.load(self.args.pretrained_path, device="cpu")
+        if pretrained.num_labels is None:
+            raise ValueError(f"{self.args.pretrained_path} is not class-conditional")
+        self._pretrained = pretrained
+        self.pretrained_num_labels = pretrained.num_labels
+        self.pretrained_kwargs = pretrained.save_kwargs()
+        try:
+            yield pretrained
+        finally:
+            self._pretrained = None
+
     def check_pretrained(self, src):
         # A VQVAE or a bare DiffusionModel: the predictor intersects either way.
         if not isinstance(src, DiffusionModel):
             raise ValueError(f"unsupported pretrained model: {type(src).__name__}")
         return src
 
+    def vq_loss_config(self) -> VQLossConfig:
+        return VQLossConfig(commitment=self.args.commitment_coeff,
+                            revival=self.args.revival_coeff)
+
     def build_loss_fn(self):
         model = self.model
         class_cond = self.args.class_cond
-        vq_cfg = VQLossConfig(commitment=self.args.commitment_coeff,
-                              revival=self.args.revival_coeff)
+        vq_cfg = self.vq_loss_config()
         jitter = self.args.jitter
 
         def loss_fn(batch, generator, draws):
@@ -440,10 +494,12 @@ class VQVAETrainLoop(DiffusionTrainLoop):
             prefixes.append("vq")
         return prefix_predicate(prefixes) if prefixes else None
 
-    def vq_update_rule(self):
+    def should_revive(self) -> bool:
         # Hard revival only without the revival loss and with a trained codebook.
-        revive = not self.args.revival_coeff and not self.args.freeze_vq
-        return VQUpdateRule(dead_rate=self.args.dead_rate, revive=revive)
+        return not self.args.revival_coeff and not self.args.freeze_vq
+
+    def vq_update_rule(self):
+        return VQUpdateRule(dead_rate=self.args.dead_rate, revive=self.should_revive())
 
     @classmethod
     def arg_parser(cls):
@@ -462,3 +518,233 @@ class VQVAETrainLoop(DiffusionTrainLoop):
     @classmethod
     def default_output_dir(cls):
         return "ckpt_vqvae"
+
+
+class VQVAEAddClassesTrainLoop(VQVAETrainLoop):
+    """Grow a trained VQ-VAE's label space with the dataset's speakers and
+    train only their label embeddings: the dataset's labels follow the
+    pretrained ones, and everything else is frozen (no gradient, no
+    moments, no update; the codebook is not revived)."""
+
+    def create_model(self):
+        with self._pretrained_loaded():
+            return super().create_model()
+
+    def create_new_model(self):
+        kwargs = dict(self.pretrained_kwargs)
+        kwargs["num_labels"] = self.num_labels + self.pretrained_num_labels
+        return VQVAE(**kwargs)
+
+    def load_from_pretrained(self, model):
+        grown = self._pretrained.add_labels(self.num_labels)
+        return copy_intersection(model, grown, self.args.pretrained_path)
+
+    def prepare_batch(self, batch):
+        return {**batch, "label": batch["label"] + self.pretrained_num_labels}
+
+    def frozen_predicate(self):
+        label_paths = set(self.model.label_parameter_paths())
+        return lambda name: name not in label_paths
+
+    def should_revive(self):
+        return False  # the codebook serves the original speakers
+
+    @classmethod
+    def default_output_dir(cls):
+        return "ckpt_vqvae_added"
+
+
+class VQVAEUncondTrainLoop(VQVAETrainLoop):
+    """Fine-tune a trained VQ-VAE for classifier-free guidance: a new label
+    0 (unconditional) goes before the pretrained ones; each row's label is
+    dropped to 0 with probability --no-class-prob and its codes zeroed
+    with probability --no-vq-prob."""
+
+    def create_model(self):
+        with self._pretrained_loaded():
+            # An embedding lookup past the table raises here, where flax
+            # clamps it; refuse up front either way.
+            if self.num_labels > self.pretrained_num_labels:
+                raise ValueError(
+                    f"dataset has {self.num_labels} speakers but the pretrained VQVAE "
+                    f"knows {self.pretrained_num_labels}; grow the label space with "
+                    "train_vqvae_add first")
+            return super().create_model()
+
+    def create_new_model(self):
+        kwargs = dict(self.pretrained_kwargs)
+        kwargs["num_labels"] = self.pretrained_num_labels + 1
+        return VQVAE(**kwargs)
+
+    def load_from_pretrained(self, model):
+        grown = self._pretrained.add_labels(1, end=False)
+        return copy_intersection(model, grown, self.args.pretrained_path)
+
+    def build_loss_fn(self):
+        model = self.model
+        vq_cfg = self.vq_loss_config()
+        jitter = self.args.jitter
+        no_class_prob = self.args.no_class_prob
+        no_vq_prob = self.args.no_vq_prob
+
+        def loss_fn(batch, generator, draws):
+            """``draws`` may hold ``no_class_nums`` [N] (a row keeps its
+            label where its uniform draw is above --no-class-prob) and
+            VQVAE.losses's draws."""
+            draws = dict(draws)
+            x = batch["samples"][..., None]
+            label = batch["label"]
+            nums = draws.pop("no_class_nums", None)
+            if nums is None:
+                nums = torch.rand(label.shape, generator=generator, device=label.device)
+            labels = (label + 1) * (nums.to(label.device) > no_class_prob).to(label.dtype)
+            out = model.losses(x, labels=labels, vq_loss_cfg=vq_cfg, jitter=jitter,
+                               no_vq_prob=no_vq_prob, train=True, generator=generator,
+                               **draws)
+            return out["mse"] + out["vq_loss"], {
+                "mses": out["mses"].detach(),
+                "ts": out["ts"],
+                "extra": {"vq_loss": out["vq_loss"]},
+                "idxs": out["idxs"],
+                "used": out["used"],
+                "enc_flat": out["enc_flat"],
+            }
+
+        return loss_fn
+
+    @classmethod
+    def arg_parser(cls):
+        parser = super().arg_parser()
+        parser.add_argument("--no-class-prob", default=0.1, type=float)
+        parser.add_argument("--no-vq-prob", default=0.1, type=float)
+        return parser
+
+    @classmethod
+    def default_output_dir(cls):
+        return "ckpt_vqvae_uncond"
+
+
+def noised_at(diffusion: Diffusion, x: torch.Tensor, power: torch.Tensor,
+              generator: Optional[torch.Generator], draws: Dict[str, Any]):
+    """(ts, samples): timesteps ``u ** power`` and x diffused to them, from
+    ``draws``'s ``t_nums`` (u, [N]) and ``noise`` (x's shape) where given,
+    else drawn from ``generator`` in that order."""
+    u = draws.get("t_nums")
+    if u is None:
+        u = torch.rand((x.shape[0],), generator=generator, device=x.device)
+    noise = draws.get("noise")
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    ts = u.to(x.device) ** power
+    return ts, diffusion.sample_q(x, ts, epsilon=noise.to(x.device))
+
+
+class _CurriculumMixin:
+    """A timestep curriculum: ts = u ** power, the power annealed linearly
+    from --curriculum-start to 1 over --curriculum-steps."""
+
+    def curriculum_power(self) -> float:
+        if self.total_steps < self.args.curriculum_steps:
+            frac = self.total_steps / self.args.curriculum_steps
+            return self.args.curriculum_start * (1 - frac) + frac
+        return 1.0
+
+    def prepare_batch(self, batch):
+        return {**batch, "ts_power": np.asarray(self.curriculum_power(), np.float32)}
+
+    @classmethod
+    def arg_parser(cls):
+        parser = super().arg_parser()
+        parser.add_argument("--curriculum-start", default=30.0, type=float)
+        parser.add_argument("--curriculum-steps", default=0, type=int)
+        return parser
+
+
+class ClassifierTrainLoop(_CurriculumMixin, TrainLoop):
+    """Train the noised-audio speaker classifier: the NLL of the clip's
+    label from the clip diffused to a curriculum timestep."""
+
+    def model_class(self):
+        return ClassifierModel
+
+    def create_new_model(self):
+        return ClassifierModel(num_labels=self.num_labels,
+                               base_channels=self.args.base_channels,
+                               dtype=self.model_dtype())
+
+    def load_from_pretrained(self, model):
+        src = ModelBase.load(self.args.pretrained_path, device="cpu")
+        if not isinstance(src, DiffusionModel):
+            raise ValueError(f"unsupported pretrained model: {type(src).__name__}")
+        return model.load_from_predictor(src.predictor)
+
+    def build_loss_fn(self):
+        model = self.model
+        diffusion = Diffusion(make_schedule(self.args.schedule))
+
+        def loss_fn(batch, generator, draws):
+            x = batch["samples"][..., None]
+            ts, samples = noised_at(diffusion, x, batch["ts_power"], generator, draws)
+            logp = F.log_softmax(model(samples, ts), dim=-1)
+            nlls = -torch.gather(logp, -1, batch["label"][:, None])[:, 0]
+            return nlls.mean(), {"mses": nlls.detach(), "ts": ts, "extra": {}}
+
+        return loss_fn
+
+    @classmethod
+    def arg_parser(cls):
+        parser = super().arg_parser()
+        parser.add_argument("--base-channels", default=32, type=int)
+        parser.add_argument("--schedule", default="exp", type=str)
+        return parser
+
+    @classmethod
+    def default_output_dir(cls):
+        return "ckpt_classifier"
+
+
+class EncoderPredictorTrainLoop(_CurriculumMixin, TrainLoop):
+    """Train the VQ-code predictor of encoder-predictor guidance: the
+    cross-entropy of a frozen VQ-VAE's codes of the clip from the clip
+    diffused to a curriculum timestep. The codes are encoded on the
+    device with no grad in every step."""
+
+    def model_class(self):
+        return EncoderPredictorModel
+
+    def create_model(self):
+        self.vq_vae = VQVAE.load(self.args.vq_vae_path, device=self.device, frozen=True)
+        return super().create_model()
+
+    def create_new_model(self):
+        return EncoderPredictorModel(
+            base_channels=self.args.base_channels,
+            downsample_rate=self.vq_vae.encoder.downsample_rate,
+            num_latents=self.vq_vae.dictionary_size,
+            dtype=self.model_dtype(),
+        )
+
+    def build_loss_fn(self):
+        model = self.model
+        vq_vae = self.vq_vae
+
+        def loss_fn(batch, generator, draws):
+            x = batch["samples"][..., None]
+            with torch.no_grad():
+                targets = vq_vae.encode(x)
+            ts, samples = noised_at(vq_vae.diffusion, x, batch["ts_power"], generator, draws)
+            losses = model.losses(samples, ts, targets)
+            return losses.mean(), {"mses": losses.detach(), "ts": ts, "extra": {}}
+
+        return loss_fn
+
+    @classmethod
+    def arg_parser(cls):
+        parser = super().arg_parser()
+        parser.add_argument("--vq-vae-path", type=str, required=True)
+        parser.add_argument("--base-channels", type=int, default=32)
+        return parser
+
+    @classmethod
+    def default_output_dir(cls):
+        return "ckpt_enc_pred"

@@ -71,10 +71,11 @@ class TrainStep:
         return self.microbatches + (1 if self.micro_remainder else 0)
 
     def chunks(self, batch: Dict[str, torch.Tensor]) -> List[Tuple[float, Dict[str, torch.Tensor]]]:
-        """(weight, sub-batch) of each forward."""
+        """(weight, sub-batch) of each forward; a scalar entry (a curriculum
+        power) goes to every sub-batch whole."""
         if self.microbatches == 1 and not self.micro_remainder:
             return [(1.0, batch)]
-        size = next(iter(batch.values())).shape[0]
+        size = max(v.shape[0] for v in batch.values() if v.ndim)
         full = size - self.micro_remainder
         micro, rem = divmod(full, self.microbatches)
         if rem:
@@ -83,7 +84,7 @@ class TrainStep:
         bounds = [(i * micro, (i + 1) * micro) for i in range(self.microbatches)]
         if self.micro_remainder:
             bounds.append((full, size))
-        return [((hi - lo) / size, {k: v[lo:hi] for k, v in batch.items()})
+        return [((hi - lo) / size, {k: v[lo:hi] if v.ndim else v for k, v in batch.items()})
                 for lo, hi in bounds]
 
     def __call__(
