@@ -122,6 +122,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    serving (encode + 10-step DPM++ of 16 clips, f32) with a profiled
    predictor call, and a full-width WaveGrad step on the card against the
    CPU as above.
+6. Real-audio data and eval, each CLI's ``main`` with the launch counts set
+   to 0 just before it and read just after: a LibriSpeech-style directory
+   at train-clean-100's speaker count (251 speakers, two 6 s utterances
+   each, 502 WAV files, ~50 minutes, 5020 windows; one speaker at 22050 Hz,
+   resampled on decode) and a held-out set (one 4.5 s file a speaker, 753
+   windows), with the seconds index.json and the window cache take;
+   with ffmpeg, one .flac written and read back. ``train_vqvae`` on the
+   directory at the flagship's widths (251 labels, bf16, 5 steps), its
+   samples/s beside the tones flagship's of phase 5 and its launches
+   asserted as there; one batch of 16 windows through the built C gather
+   against the numpy loop (bit for bit, both timed); then the eval CLIs at
+   full width: ``stat_generate --data-dir`` on the held-out set (256
+   segments, the base-32 classifier: 55 GroupNorms a batch), ``swap_eval``
+   on the tones flagship (32 clips, 10 DPM++ steps: 2 x 47 + 10 x 131
+   GroupNorms and 2 VQ assigns a batch), ``stat_generate --sample-dir`` on
+   its WAVs and ``stat_compare`` of the two (a finite distance),
+   ``eval_diffusion`` (phase 3's unet64, 131 a batch), ``eval_vqvae`` (the
+   directory's checkpoint, 47 + 2 x 131 and one VQ a batch) and
+   ``voice_search_vqvae`` (251 labels x 4 timesteps, 63 predictor calls);
+   each with its wall seconds, rate, peak device memory and launches
+   (no backward launch on any eval path); last, one stat_generate batch of
+   the base-32 classifier, f32 with TF32 off, on the card against the CPU
+   (features and probabilities within 1e-4 of their largest entry).
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -149,19 +172,36 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from kernel_ab import cuda_ms, eager_ms, seed_weights  # noqa: E402
 from vq_voice_swap_torch import (  # noqa: E402
+    eval_diffusion,
+    eval_vqvae,
     sample_diffusion,
     sample_vqvae,
     sample_vqvae_uncond,
+    stat_compare,
+    stat_generate,
+    swap_eval,
     train_classifier,
     train_diffusion,
     train_enc_pred,
     train_vqvae,
     train_vqvae_add,
     train_vqvae_uncond,
+    voice_search_vqvae,
 )
 from vq_voice_swap_torch.classifier_model import (  # noqa: E402
     ClassifierModel,
     EncoderPredictorModel,
+)
+from vq_voice_swap_torch.data import (  # noqa: E402
+    ChunkReader,
+    ChunkWriter,
+    LibriSpeech,
+    build_file_index,
+    have_ffmpeg,
+)
+from vq_voice_swap_torch.data.native import (  # noqa: E402
+    batch_gather_windows,
+    batch_gather_windows_plain,
 )
 from vq_voice_swap_torch.diffusion import make_warp  # noqa: E402
 from vq_voice_swap_torch.diffusion_model import DiffusionModel  # noqa: E402
@@ -1702,6 +1742,252 @@ def training_paths(dev, workdir: str, clips: np.ndarray, smi: str):
     return runs
 
 
+
+# ------------------------------------------------------------------ phase 6
+
+# A LibriSpeech-style directory at train-clean-100's speaker count: two
+# 6 s utterances a speaker to train on (10 windows each), one 4.5 s file a
+# speaker held out (3 windows each); one speaker's files at 22050 Hz.
+SPEAKERS = 251
+TRAIN_UTTERANCE_S = 6.0
+HELD_OUT_S = 4.5
+RESAMPLED_SPEAKER = 7
+DIRECTORY_STEPS = TRAIN_STEPS  # as the tones flagship, for the same steady steps
+STAT_SAMPLES = 256
+SWAP_SAMPLES = 32
+SWAP_STEPS = 10
+SEARCH_TIMESTEPS = 4
+
+
+def write_librispeech(root: str, chapters: int, seconds: float, seed: int) -> int:
+    """<speaker>/<chapter>/<speaker>-<chapter>-0000.wav for SPEAKERS speakers,
+    each a speech_like clip of its own seed; returns the number of files."""
+    files = 0
+    for spk in range(SPEAKERS):
+        rate = 22050 if spk == RESAMPLED_SPEAKER else SAMPLE_RATE
+        for ch in range(chapters):
+            d = os.path.join(root, str(100 + spk), str(ch))
+            os.makedirs(d)
+            clip = speech_like(seed + 1000 * spk + ch, int(seconds * rate))
+            with wave.open(os.path.join(d, f"{100 + spk}-{ch}-0000.wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(rate)
+                w.writeframes((np.clip(clip, -1, 1) * (2**15 - 1)).astype("<i2").tobytes())
+            files += 1
+    return files
+
+
+def audio_io_check(workdir: str) -> None:
+    """With ffmpeg, one .flac through ChunkWriter and back through
+    ChunkReader; without it, the WAV path alone runs (not a failure)."""
+    if not have_ffmpeg():
+        print("ffmpeg: not installed; the data phase reads WAV through the stdlib")
+        return
+    clip = speech_like(3, SAMPLES)
+    path = os.path.join(workdir, "clip.flac")
+    with ChunkWriter(path, SAMPLE_RATE) as writer:
+        writer.write(clip)
+    with ChunkReader(path, SAMPLE_RATE) as reader:
+        back = reader.read(1 << 40)
+    err = np.abs(back[:SAMPLES] - clip).max()
+    print(f"ffmpeg: installed; a 4 s .flac written and read back, {len(back)} samples, "
+          f"max |diff| {err:.3g} (16-bit rounding: limit 1e-4)")
+    assert len(back) == SAMPLES and err <= 1e-4
+
+
+def build_directories(workdir: str):
+    """The train and held-out directories, each indexed and cached as the
+    loader does it; prints the seconds each step takes."""
+    dirs = {}
+    for name, chapters, seconds, seed in (("train", 2, TRAIN_UTTERANCE_S, 0),
+                                          ("held_out", 1, HELD_OUT_S, 500000)):
+        root = os.path.join(workdir, f"librispeech_{name}")
+        t0 = time.perf_counter()
+        files = write_librispeech(root, chapters, seconds, seed)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index = build_file_index(root)
+        with open(os.path.join(root, "index.json"), "w") as f:
+            json.dump(index, f)
+        t_index = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dataset = LibriSpeech(root)
+        t_cache = time.perf_counter() - t0
+        arena = os.path.getsize(dataset.cache.arena_path)
+        print(f"directory {name}: {len(dataset.speaker_ids)} speakers, {files} files, "
+              f"{arena / 4 / SAMPLE_RATE / 60:.2f} min of audio, {len(dataset)} windows; "
+              f"written in {t_write:.3f} s, index.json in {t_index:.3f} s, window cache "
+              f"({arena / 1e6:.1f} MB) in {t_cache:.3f} s")
+        want = (SPEAKERS * chapters * (10 if name == "train" else 3))
+        assert len(dataset.speaker_ids) == SPEAKERS and len(dataset) == want, len(dataset)
+        dirs[name] = (root, dataset)
+    return dirs
+
+
+def gather_check(dataset) -> None:
+    """One batch of BATCH windows through the built C gather against the
+    numpy loop, bit for bit, each timed."""
+    refs = [(w.path, w.offset) for w in np.random.RandomState(0).choice(
+        dataset.windows, BATCH, replace=False)]
+    cache = dataset.cache
+    got = cache.read_windows(refs, SAMPLES)
+    want = cache.read_windows(refs, SAMPLES, gather=batch_gather_windows_plain)
+    assert got.shape == (BATCH, SAMPLES) and np.array_equal(got, want)
+    times = {}
+    for name, gather in (("C", batch_gather_windows), ("numpy", batch_gather_windows_plain)):
+        runs = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            cache.read_windows(refs, SAMPLES, gather=gather)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        times[name] = float(np.median(runs))
+    print(f"window gather, {BATCH} x {SAMPLES} windows from the cache, warm: C "
+          f"{times['C']:.4f} ms, numpy {times['numpy']:.4f} ms (medians of 20), equal bit "
+          f"for bit")
+
+
+def median_rate(out: str) -> float:
+    """The median samples/s of a train run's steady steps (3 to the one
+    before the last), as training_run prints it."""
+    return float(np.median([f["samples_per_sec"] for _, f in _train_log(out)[2:-1]]))
+
+
+def eval_run(dev, name: str, fn, argv, want, units: float, unit: str):
+    """One eval CLI's main with the launch counts set to 0 just before it:
+    asserts each wrapper's count in ``want`` (and no backward launch),
+    prints wall seconds, units per second and peak device memory. Returns
+    the counts and what the CLI printed."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout)) as printed:
+        fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"eval {name}: {seconds:.3f} s, {units / seconds:.4f} {unit}, peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {counts}")
+    for k, v in want.items():
+        assert counts[k] == v, (name, k, counts[k], v)
+    assert counts["group_norm_backward"] == counts["group_norm_stats"] == 0
+    assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == 0
+    return counts, printed.getvalue()
+
+
+def gn_launches(norms: int, vq: int = 0):
+    """Forward GroupNorms (one statistics and one apply launch each) and VQ
+    assigns of an eval path."""
+    return dict(group_norm_coeffs=norms, group_norm_apply=norms, vq_assign=vq)
+
+
+def features_card_vs_cpu(dev, clf_ckpt: str, held_out) -> None:
+    """One stat_generate batch of the base-32 classifier, f32 with TF32 off,
+    on the card (kernels) and on the CPU (plain versions): features and
+    probabilities within 1e-4 of their largest entry."""
+    torch.backends.cudnn.allow_tf32 = False
+    batch = torch.from_numpy(held_out.get_batch(np.arange(BATCH))["samples"])
+    outs = {}
+    for device in ("cpu", dev):
+        model = ClassifierModel.load(clf_ckpt, device=device)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            outs[str(device)] = [o.cpu() for o in stat_generate.featurize(
+                model, batch.to(device))]
+        print(f"  stat_generate batch of {BATCH} on {device}: {time.perf_counter() - t0:.3f} s")
+    torch.backends.cudnn.allow_tf32 = True
+    errs = [((g - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(outs[str(dev)], outs["cpu"])]
+    print(f"classifier features card vs CPU, base 32, batch {BATCH} x {SAMPLES}, f32: "
+          f"features {errs[0]:.3g}, probabilities {errs[1]:.3g} of their largest entry "
+          f"(limit 1e-4)")
+    assert max(errs) <= 1e-4
+
+
+def data_eval_paths(dev, workdir: str, smi: str, flagship: str, uncond_ckpt: str,
+                    clf_ckpt: str):
+    """Real-audio data and the six eval CLIs at full width: the directories,
+    a train run on them beside the tones flagship's, the gather, each eval
+    CLI with its launches asserted, and the classifier card against CPU.
+    Returns {run name: counts}."""
+    audio_io_check(workdir)
+    dirs = build_directories(workdir)
+    train_dir, train_set = dirs["train"]
+    held_dir, held_set = dirs["held_out"]
+
+    gn_vqvae = GN_PER_PREDICTOR + GN_PER_ENCODER128
+    argv = [train_dir] + TRAIN_VQVAE_ARGV[1:] + ["--bf16"]
+    out, _, counts, _ = training_run(dev, workdir, "vqvae bf16 librispeech", train_vqvae,
+                                     argv, DIRECTORY_STEPS, per_step(gn_vqvae, gn_vqvae, 1),
+                                     smi)
+    runs = {"train_vqvae librispeech": counts}
+    ckpt = os.path.join(out, "model.npz")
+    print(f"training on the directory ({SPEAKERS} labels) vs {TRAIN_VQVAE_ARGV[0]} (3 "
+          f"labels), both bf16 batch {BATCH} in this call: {median_rate(out):.4f} vs "
+          f"{median_rate(os.path.dirname(flagship)):.4f} samples/s")
+    gather_check(train_set)
+
+    stats_data = os.path.join(workdir, "stats_data.npz")
+    batches = STAT_SAMPLES // BATCH
+    runs["stat_generate data"], _ = eval_run(dev, "stat_generate --data-dir", stat_generate.main, [
+        "--checkpoint-path", clf_ckpt, "--data-dir", held_dir, "--num-samples",
+        str(STAT_SAMPLES), "--batch-size", str(BATCH), "--device", "cuda", stats_data],
+        gn_launches(GN_PER_CLASSIFIER * batches), STAT_SAMPLES, "segments/s")
+
+    swap_dir = os.path.join(workdir, "swap_eval")
+    swap_batches = SWAP_SAMPLES // BATCH
+    runs["swap_eval"], printed = eval_run(dev, "swap_eval", swap_eval.main, [
+        "--num-samples", str(SWAP_SAMPLES), "--batch-size", str(BATCH), "--sample-steps",
+        str(SWAP_STEPS), "--sampler", "dpmpp", "--device", "cuda", flagship, swap_dir],
+        gn_launches((2 * GN_PER_ENCODER128 + SWAP_STEPS * GN_PER_PREDICTOR) * swap_batches,
+                    2 * swap_batches), SWAP_SAMPLES * 4, "s of audio per s (swap RTF)")
+    report = json.loads(printed.strip().splitlines()[-1])
+    assert report["n"] == SWAP_SAMPLES and all(np.isfinite(v) for v in report.values())
+
+    stats_swap = os.path.join(workdir, "stats_swap.npz")
+    runs["stat_generate samples"], _ = eval_run(dev, "stat_generate --sample-dir",
+                                                stat_generate.main, [
+        "--checkpoint-path", clf_ckpt, "--sample-dir", swap_dir, "--batch-size", str(BATCH),
+        "--device", "cuda", stats_swap],
+        gn_launches(GN_PER_CLASSIFIER * swap_batches), SWAP_SAMPLES, "segments/s")
+    with contextlib.redirect_stdout(_Tee(sys.stdout)) as printed:
+        stat_compare.main([stats_data, stats_swap])
+    distance = float(printed.getvalue().strip().splitlines()[-1])
+    with np.load(stats_data) as a, np.load(stats_swap) as b:
+        scores = float(a["class_score"]), float(b["class_score"])
+        assert a["probs"].shape == (STAT_SAMPLES, CLASSIFIER_KWARGS["num_labels"])
+    print(f"stat_compare held-out data vs swap_eval samples: Frechet distance {distance}, "
+          f"class scores {scores[0]:.4f} / {scores[1]:.4f} (seeded weights: not a quality "
+          f"number)")
+    assert np.isfinite(distance) and distance >= 0
+
+    held_batches = len(held_set) // BATCH
+    runs["eval_diffusion"], _ = eval_run(dev, "eval_diffusion", eval_diffusion.main, [
+        "--batch-size", str(BATCH), "--device", "cuda", uncond_ckpt, held_dir],
+        gn_launches(GN_PER_PREDICTOR * held_batches), held_batches * BATCH, "segments/s")
+
+    runs["eval_vqvae"], _ = eval_run(dev, "eval_vqvae", eval_vqvae.main, [
+        "--batch-size", str(BATCH), "--device", "cuda", ckpt, held_dir],
+        gn_launches((GN_PER_ENCODER128 + 2 * GN_PER_PREDICTOR) * held_batches, held_batches),
+        held_batches * BATCH, "segments/s")
+
+    pairs = SPEAKERS * SEARCH_TIMESTEPS
+    calls = -(-pairs // BATCH)
+    clip = held_set.windows[0].path
+    runs["voice_search_vqvae"], printed = eval_run(dev, "voice_search_vqvae",
+                                                   voice_search_vqvae.main, [
+        "--num-timesteps", str(SEARCH_TIMESTEPS), "--batch-size", str(BATCH), "--top-k", "5",
+        "--input-file", clip, "--device", "cuda", ckpt],
+        gn_launches(GN_PER_ENCODER128 + calls * GN_PER_PREDICTOR, 1), pairs,
+        f"(label, t) pairs/s ({calls} predictor calls)")
+    assert f"{pairs}/{pairs}" in printed
+
+    features_card_vs_cpu(dev, clf_ckpt, held_set)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1761,7 +2047,18 @@ def main() -> int:
         print("training launches, all runs: " + ", ".join(
             f"{k} {sum(c[k] for c in training.values())}" for k in (
                 "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
-    check_tickets("the training paths")
+        check_tickets("the training paths")
+        print(f"phase 5: {time.perf_counter() - t_start:.1f} s")
+        # Real-audio data and eval, from the tones flagship's bf16 run
+        # (training_run's directory for "vqvae bf16"), phase 3's
+        # unconditional unet64 and classifier.
+        flagship = os.path.join(workdir, "vqvae_bf16", "model.npz")
+        evals = data_eval_paths(dev, workdir, smi, flagship, uncond_ckpt, clf_ckpt)
+        print(f"phase 6: {time.perf_counter() - t_start:.1f} s")
+        print("data and eval launches, all runs: " + ", ".join(
+            f"{k} {sum(c[k] for c in evals.values())}" for k in (
+                "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
+    check_tickets("the data and eval paths")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

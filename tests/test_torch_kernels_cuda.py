@@ -7,6 +7,7 @@ runs where JAX is not installed:
 """
 
 import copy
+import os
 
 import pytest
 import torch
@@ -529,3 +530,82 @@ def test_wavegrad_forward_on_the_card_matches_the_cpu(cuda_gen):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_classifier_features_on_the_card_match_the_cpu(cuda_gen):
+    """stat_generate's features and probabilities (base 4, 55 GroupNorms,
+    f32, TF32 off) on the card against the CPU within 1e-4 of their largest
+    entry."""
+    from vq_voice_swap_torch import stat_generate
+    from vq_voice_swap_torch.classifier_model import ClassifierModel
+
+    model = _seeded(ClassifierModel(num_labels=5, base_channels=4), 6)
+    gen = torch.Generator().manual_seed(7)
+    x = 0.5 * torch.tanh(torch.randn(3, 64000, generator=gen))
+    with torch.no_grad():
+        want = stat_generate.featurize(model, x)
+        launches = gn.group_norm_apply.launches
+        got = stat_generate.featurize(model.cuda(), x.cuda())
+    assert gn.group_norm_apply.launches == launches + 55
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def _write_wav(path, samples, rate=16000):
+    import wave
+
+    import numpy as np
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(samples, -1, 1) * (2**15 - 1)).astype("<i2").tobytes())
+
+
+@pytest.mark.cuda
+def test_window_gather_built_here_matches_numpy(cuda_gen, tmp_path):
+    """The window cache's C gather, built on this machine, against its numpy
+    loop bit for bit (a 22050 Hz file among the cached ones)."""
+    import numpy as np
+
+    from vq_voice_swap_torch.data.cache import WindowCache
+    from vq_voice_swap_torch.data.native import batch_gather_windows_plain
+
+    rng = np.random.RandomState(0)
+    paths = []
+    for i, rate in enumerate((16000, 22050, 16000)):
+        paths.append(str(tmp_path / f"{i}.wav"))
+        _write_wav(paths[-1], 0.2 * rng.randn(int(rate * 4.5)), rate)
+    cache = WindowCache(str(tmp_path / "cache"))
+    cache.build(paths)
+    refs = [(p, off) for p in paths for off in (0, 3200, 9600, 70000)]
+    got = cache.read_windows(refs, 64000)
+    assert got.shape == (12, 64000) and got[0].any()
+    np.testing.assert_array_equal(
+        got, cache.read_windows(refs, 64000, gather=batch_gather_windows_plain))
+
+
+@pytest.mark.cuda
+def test_stat_generate_on_the_card(cuda_gen, tmp_path):
+    """stat_generate --device cuda over a tiny LibriSpeech-style directory:
+    8 windows through the loader, finite statistics of the right shapes."""
+    import numpy as np
+
+    from vq_voice_swap_torch import stat_generate
+    from vq_voice_swap_torch.classifier_model import ClassifierModel
+
+    ckpt = str(tmp_path / "classifier.npz")
+    _seeded(ClassifierModel(num_labels=2, base_channels=4), 8).save(ckpt)
+    rng = np.random.RandomState(1)
+    for spk in ("a", "b"):
+        _write_wav(str(tmp_path / "ds" / spk / "1" / "u.wav"), 0.2 * rng.randn(72000))
+    out = str(tmp_path / "stats.npz")
+    stat_generate.main(["--checkpoint-path", ckpt, "--data-dir", str(tmp_path / "ds"),
+                        "--num-samples", "6", "--batch-size", "4", "--device", "cuda", out])
+    with np.load(out) as stats:
+        assert stats["mean"].shape == (64,) and stats["cov"].shape == (64, 64)
+        assert stats["probs"].shape == (6, 2)
+        assert all(np.isfinite(stats[k]).all() for k in stats.files)

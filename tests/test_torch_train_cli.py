@@ -5,8 +5,9 @@ that its ``read_log`` parses; the run resumes from its own save with the
 log truncated to it, the same bits twice; ``train_diffusion`` takes a
 microbatched step and warm-starts a VQ-VAE through --pretrained-path from a
 JAX-saved checkpoint; a run directory with only the JAX optimizer state and
-the flags not ported are refused. Also the data loaders, the log format and
-the loss tracker of both packages.
+the flags not ported are refused; ``train_vqvae`` trains on a WAV
+directory. Also the data loaders, the log format and the loss tracker of
+both packages.
 
 Models are the full topology at base 2 (no JAX init runs; the JAX package
 loads what the port saved). Tolerance: 1e-4 for one forward pass
@@ -17,6 +18,7 @@ import glob
 import json
 import os
 import shutil
+import wave
 
 import jax
 import jax.numpy as jnp
@@ -210,9 +212,29 @@ def test_data_loader_matches_jax(directory, batch):
                 np.testing.assert_array_equal(got[k], want[k])
 
 
-def test_data_loader_refuses_real_audio():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        create_data_loader("/data/LibriSpeech/train-clean-360", 2)
+def test_train_vqvae_cli_trains_on_a_wav_directory(tmp_path):
+    """A LibriSpeech-style directory (two speakers, 4.5 s files: three
+    windows each) trains, and the JAX package loads the model, with one
+    label per speaker."""
+    rng = np.random.RandomState(3)
+    for spk in ("p1", "p2"):
+        os.makedirs(tmp_path / "ds" / spk / "c1")
+        for utt in ("a", "b"):
+            with wave.open(str(tmp_path / "ds" / spk / "c1" / f"{utt}.wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes((0.2 * rng.randn(72000) * 32767).astype("<i2").tobytes())
+    out = str(tmp_path / "run")
+    train_vqvae.main(["--device", "cpu", "--base-channels", "2", "--batch-size", "2",
+                      "--max-steps", "2", "--save-interval", "2", "--class-cond",
+                      "--output-dir", out, str(tmp_path / "ds")])
+    assert _steps(os.path.join(out, "train_log.txt")) == [1, 2]
+    assert os.path.exists(tmp_path / "ds" / "index.json")
+    assert os.path.exists(tmp_path / "ds" / ".window_cache" / "arena.f32")
+    jax_model, variables = JaxModelBase.load(os.path.join(out, "model.npz"))
+    assert type(jax_model).__name__ == "VQVAE" and jax_model.num_labels == 2
+    assert variables["params"]["vq"]["dictionary"].shape == (512, 32)
 
 
 def test_log_format_and_tracker_match_jax(tmp_path):

@@ -1,10 +1,14 @@
 """Shuffled batches with background prefetch (counterpart of
-``vq_voice_swap_tpu/data/loader.py`` on one host): epoch e is the
-permutation of ``np.random.RandomState(seed + e)``, cut into full batches
-(the last partial one dropped), so both packages see the same batches in
-the same order. Batches are numpy dicts {"label": [N] int32, "samples":
-[N, T] float32}, collated by a thread pool ahead of the consumer."""
+``vq_voice_swap_tpu/data/loader.py``): epoch e is the permutation of
+``np.random.RandomState(seed + e)``, cut into full batches (the last
+partial one dropped), so both packages see the same batches in the same
+order. With ``num_shards`` > 1, every shard takes the same permutation and
+its own strided slice of it. Batches are numpy dicts {"label": [N] int32,
+"samples": [N, T] float32}, collated by a thread pool ahead of the
+consumer; a dataset with a window cache gives a whole batch in one gather
+(``get_batch``)."""
 
+import os
 import queue
 import threading
 from collections import deque
@@ -13,7 +17,7 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
-from .datasets import ChirpDataset, ToneDataset
+from .datasets import ChirpDataset, LibriSpeech, ToneDataset
 
 __all__ = ["DataLoader", "create_data_loader"]
 
@@ -22,26 +26,37 @@ class DataLoader:
     """Shuffled, drop-last batch iterator with prefetching."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4, prefetch: int = 4,
-                 seed: int = 0):
+                 seed: int = 0, shard_index: int = 0, num_shards: int = 1):
+        """Every shard gets ``len(dataset) // num_shards`` items an epoch,
+        disjoint from the other shards', so hosts stay in step."""
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard {shard_index} not in [0, {num_shards})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self._epoch = 0
         self._seed = seed
+        self.shard_index = shard_index
+        self.num_shards = num_shards
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        return len(self.dataset) // self.num_shards // self.batch_size
 
     def _batch_indices(self):
         order = np.arange(len(self.dataset))
         np.random.RandomState((self._seed + self._epoch) % 2**31).shuffle(order)
         self._epoch += 1
+        if self.num_shards > 1:
+            usable = len(order) - len(order) % self.num_shards
+            order = order[self.shard_index:usable:self.num_shards]
         end = len(order) - len(order) % self.batch_size
         for i in range(0, end, self.batch_size):
             yield order[i:i + self.batch_size]
 
     def _collate(self, idxs) -> Dict[str, np.ndarray]:
+        if getattr(self.dataset, "cache", None) is not None:
+            return self.dataset.get_batch(idxs)
         items = [self.dataset[int(i)] for i in idxs]
         return {
             "label": np.asarray([it["label"] for it in items], np.int32),
@@ -111,20 +126,26 @@ class DataLoader:
 
 
 def create_data_loader(directory: str, batch_size: int, encoding: str = "linear",
-                       num_workers: int = 4, seed: int = 0) -> Tuple[DataLoader, int]:
+                       num_workers: int = 4, seed: int = 0, shard_index: int = 0,
+                       num_shards: int = 1, **dataset_kwargs) -> Tuple[DataLoader, int]:
     """(loader, num_labels) for "tones" (3 speakers x 10 phases), "tones:N"
-    (N phases), "chirps" (8 speakers x 10 items) or "chirps:N". A directory
-    of real audio raises NotImplementedError."""
+    (N phases), "chirps" (8 speakers x 10 items), "chirps:N", or else a
+    LibriSpeech-style directory (``dataset_kwargs`` go to ``LibriSpeech``).
+    ``shard_index``/``num_shards`` give each host a disjoint slice of every
+    epoch's shared permutation (see ``DataLoader``)."""
     name, _, count = directory.partition(":")
     if name == "tones":
         dataset = ToneDataset(encoding=encoding, phases=int(count or 10))
     elif name == "chirps":
         dataset = ChirpDataset(encoding=encoding, items_per_speaker=int(count or 10))
     else:
-        raise NotImplementedError(
-            f"{directory!r}: real-audio datasets (LibriSpeech-style directories) are not "
-            "ported yet; they come with the data slice (ROADMAP.md queue 1, item 4). "
-            "Use tones, tones:N, chirps or chirps:N."
-        )
-    loader = DataLoader(dataset, batch_size=batch_size, num_workers=num_workers, seed=seed)
+        if num_shards > 1:
+            # A window cache for each host: the data directory is usually
+            # on a shared filesystem, where the cache's build lock holds
+            # within one host only.
+            dataset_kwargs.setdefault(
+                "cache_dir", os.path.join(directory, f".window_cache_h{shard_index}"))
+        dataset = LibriSpeech(directory, encoding=encoding, **dataset_kwargs)
+    loader = DataLoader(dataset, batch_size=batch_size, num_workers=num_workers, seed=seed,
+                        shard_index=shard_index, num_shards=num_shards)
     return loader, len(dataset.speaker_ids)

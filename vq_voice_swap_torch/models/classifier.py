@@ -96,7 +96,8 @@ class ClassifierStem(nn.Module):
 
 class Classifier(nn.Module):
     """The stem and a linear head: [N, T, 1] + ts -> [N, num_labels]
-    float32 logits."""
+    float32 logits. ``features`` is the stem's output, which the eval
+    statistics are taken of, and ``head_from_features`` the logits of it."""
 
     def __init__(
         self,
@@ -111,5 +112,11 @@ class Classifier(nn.Module):
         self.stem = ClassifierStem(base_channels, channel_mult, output_mult, depth_mult, dtype)
         self.head = nn.Linear(base_channels * output_mult, num_labels)
 
+    def features(self, x: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+        return self.stem(x, ts)
+
+    def head_from_features(self, features: torch.Tensor) -> torch.Tensor:
+        return self.head(gelu(features))
+
     def forward(self, x: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
-        return self.head(gelu(self.stem(x, ts)))
+        return self.head_from_features(self.features(x, ts))

@@ -4,8 +4,11 @@
 embeddings alone), ``VQVAEUncondTrainLoop`` (classifier-free guidance
 fine-tuning), ``ClassifierTrainLoop`` and ``EncoderPredictorTrainLoop``.
 
-A loop creates or resumes the model, its EMAs and the optimizer from
-``--output-dir``, then runs one train step per batch. Step N draws from
+The data is ``data_dir``: ``tones``, ``chirps`` (``:N`` for more items)
+or a LibriSpeech-style directory, indexed and decoded into a window cache
+at first use (``data/``). A loop creates or resumes the model, its EMAs
+and the optimizer from ``--output-dir``, then runs one train step per
+batch. Step N draws from
 its own generator, seeded from (--seed, N), so a resumed run draws what
 an uninterrupted one would. Metric fetches lag the steps by
 ``--pipeline-depth``, so the host queues the next step while the card
@@ -42,7 +45,7 @@ from ..diffusion_model import DiffusionModel
 from ..model_base import ModelBase
 from ..models.init import init_like_flax
 from ..observe import Logger, LossTracker
-from ..util import resolve_device
+from ..util import resolve_device, step_generator
 from ..vq import VQLossConfig
 from ..vq_vae import VQVAE
 from .ema import EMA
@@ -82,12 +85,6 @@ class _NotPorted(argparse.Action):
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} ({NOT_PORTED[option_string]}) is not ported to "
                      "vq_voice_swap_torch yet (ROADMAP.md queue 1)")
-
-
-def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
-    """The generator of global step ``step``, seeded from (seed, step) alone."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state) >> 1)
 
 
 def copy_intersection(model: torch.nn.Module, src: torch.nn.Module, source: str) -> int:

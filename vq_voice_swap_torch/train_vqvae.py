@@ -9,6 +9,8 @@ Examples:
     python -m vq_voice_swap_torch.train_vqvae tones:40 --predictor unet \\
         --base-channels 64 --encoder unet128 --class-cond --bf16 \\
         --batch-size 16 --max-steps 1000 --output-dir run_vqvae
+    python -m vq_voice_swap_torch.train_vqvae --class-cond --bf16 --batch-size 16 \
+        /data/LibriSpeech/train-clean-100
     python -m vq_voice_swap_torch.train_vqvae --device cpu --base-channels 4 \\
         --batch-size 2 --max-steps 3 --save-interval 3 tones
 """

@@ -1,10 +1,11 @@
-"""Device selection shared by every entry point."""
+"""Device selection and seeded generators shared by the entry points."""
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "step_generator"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -18,3 +19,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "on the CPU"
         )
     return dev
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The generator of step (or batch) ``step`` of a run, seeded from
+    (seed, step) alone, so a resumed run draws what it would have."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) >> 1)
