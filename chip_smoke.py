@@ -121,7 +121,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    checkpoint through ``sample_vqvae`` (1 VQ launch, no other), swap
    serving (encode + 10-step DPM++ of 16 clips, f32) with a profiled
    predictor call, and a full-width WaveGrad step on the card against the
-   CPU as above.
+   CPU as above. Then the single-device train flags: the bf16 flagship
+   for 8 steps at ``--steps-per-dispatch 4`` (its forwards and backward
+   replayed from a CUDA graph; a wrapper counts the warm-up and the
+   capture, and a profiled replay shows 1 VQ and 178 of each GroupNorm
+   launch a step) against the eager run above and a second eager run,
+   then an eager and a K=4 run with deterministic algorithms, which must
+   agree bit for bit (logged values, model, EMA, AdamW moments); the
+   samples/s, busy share, launches and peak memory of both; the other
+   five loops at K=4 for one window each, with a profiled replay
+   (add-classes, uncond, enc-pred with ``--async-save --async-snapshot
+   device``, the classifier with ``--async-save``, whose markers and files
+   are checked, and WaveGrad with ``--profile-dir``, whose trace is read);
+   ``--grad-checkpoint full`` and ``convs`` on the flagship (bf16 at K=1
+   and K=4, f32 at K=1: peak memory and samples/s against none, 354
+   GroupNorm forward launches a step) and one full-width step's
+   gradients against none (1e-4 f32, 2e-2 bf16 of each leaf's scale).
+   Last, phase 3's swap model written as a released-reference ``.pt``
+   loads through ``ModelBase.load`` and swaps to the npz's bits.
 6. Real-audio data and eval, each CLI's ``main`` with the launch counts set
    to 0 just before it and read just after: a LibriSpeech-style directory
    at train-clean-100's speaker count (251 speakers, two 6 s utterances
@@ -157,6 +174,7 @@ import copy
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -212,6 +230,7 @@ from vq_voice_swap_torch.ops import fused_resblock as frb  # noqa: E402
 from vq_voice_swap_torch.ops import group_norm as gn  # noqa: E402
 from vq_voice_swap_torch.ops import vq_assign as vqa  # noqa: E402
 from vq_voice_swap_torch.ops.tickets import ticket_buffers  # noqa: E402
+from vq_voice_swap_torch.observe import Logger  # noqa: E402
 from vq_voice_swap_torch.train import (  # noqa: E402
     ClassifierTrainLoop,
     DiffusionTrainLoop,
@@ -220,6 +239,7 @@ from vq_voice_swap_torch.train import (  # noqa: E402
     VQVAETrainLoop,
     VQVAEUncondTrainLoop,
 )
+from vq_voice_swap_torch.train.graphs import WARMUP_STEPS  # noqa: E402
 from vq_voice_swap_torch.train.loops import step_generator  # noqa: E402
 from vq_voice_swap_torch.vq_vae import VQVAE  # noqa: E402
 
@@ -1156,7 +1176,7 @@ def profile_call(fn, name: str, grad: bool = False):
     with torch.set_grad_enabled(grad):
         fn()
         torch.cuda.synchronize()
-        records, wall_ms, lost = profiled(fn)
+        records, wall_ms, lost, host_launches = profiled(fn)
     total = sum(ms for _, ms in records)
     by_class, counts, by_name = {}, {}, {}
     for key, ms in records:
@@ -1168,7 +1188,8 @@ def profile_call(fn, name: str, grad: bool = False):
     to_host = sum("DtoH" in key for key, _ in records)
     print(f"profile {name}, batch {BATCH}: wall {wall_ms:.3f} ms, "
           f"device busy {total:.3f} ms ({100 * total / wall_ms:.1f}%), "
-          f"{len(records)} kernel launches, {to_host} copies to the host (the profiler "
+          f"{len(records)} kernel launches from {host_launches} host launch calls, "
+          f"{to_host} copies to the host (the profiler "
           f"lost the device records of {lost} of the {PROFILE_PAD} pad launches before it)")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls}: {ms:.3f} ms ({100 * ms / max(total, 1e-9):.1f}%), "
@@ -1192,8 +1213,9 @@ _LAUNCH_CALLS = ("Launch", "Memcpy", "Memset")
 def profiled(fn):
     """Run fn() under torch.profiler after PROFILE_PAD small launches.
     Returns fn's device records as (name, ms), one per kernel or copy its
-    launches made, fn's wall time in ms, and how many pad launches lost
-    their device record. Fails if any launch of fn has no device record."""
+    launches made (a CUDA graph launch makes one per node), fn's wall time
+    in ms, how many pad launches lost their device record and fn's host
+    launch calls. Fails if any launch of fn has no device record."""
     from torch.profiler import ProfilerActivity, profile
 
     pad = torch.zeros(1, device="cuda")
@@ -1224,7 +1246,7 @@ def profiled(fn):
     assert len(pad_ids) == PROFILE_PAD and not missing, (
         f"{len(missing)} of {len(fn_ids)} launches without a device record: {missing[:8]}")
     records = [(e.name(), e.duration_ns() / 1e6) for c in fn_ids for e in recorded[c]]
-    return records, wall_ms, sum(c not in recorded for c in pad_ids)
+    return records, wall_ms, sum(c not in recorded for c in pad_ids), len(fn_ids)
 
 
 def group_norm_glue(model: VQVAE, dev, name: str) -> None:
@@ -1247,7 +1269,7 @@ def group_norm_glue(model: VQVAE, dev, name: str) -> None:
     for f in (None, film):
         gn.group_norm(x, w, b, groups, 1e-5, True, f)
         torch.cuda.synchronize()
-        records, _, _ = profiled(lambda: gn.group_norm(x, w, b, groups, 1e-5, True, f))
+        records, _, _, _ = profiled(lambda: gn.group_norm(x, w, b, groups, 1e-5, True, f))
         names = sorted(_kernel_class(key) for key, _ in records)
         assert names == ["groupnorm apply (Triton)", "groupnorm stats + fold (CUDA)"], names
     print(f"  unfused GroupNorm {name}, with and without FiLM: 2 launches "
@@ -1268,7 +1290,7 @@ def group_norm_glue(model: VQVAE, dev, name: str) -> None:
 
         merge_and_fold()
         torch.cuda.synchronize()
-        glue, _, _ = profiled(merge_and_fold)
+        glue, _, _, _ = profiled(merge_and_fold)
         t0 = time.perf_counter()
         for _ in range(100):
             merge_and_fold()
@@ -1452,34 +1474,75 @@ class _Tee(io.StringIO):
         return super().write(text)
 
 
-def training_run(dev, workdir: str, name: str, cli, argv, steps: int, launches, smi: str):
+# What each train run logged (unrounded, as Logger.log got it), its
+# samples/s and peak device memory, and the loops kept for a profile, by
+# run name.
+RAW_LOGS, RATES, PEAKS, LOOPS = {}, {}, {}, {}
+
+
+@contextlib.contextmanager
+def recorded_log(into: list):
+    """Record every Logger.log call's step and values, unrounded."""
+    log = Logger.log
+
+    def record(self, step, **values):
+        into.append((step + self.start_step, values))
+        return log(self, step, **values)
+
+    Logger.log = record
+    try:
+        yield into
+    finally:
+        Logger.log = log
+
+
+def training_run(dev, workdir: str, name: str, cli, argv, steps: int, launches, smi: str,
+                 k: int = 1, loop_cls=None):
     """One train CLI run of ``steps`` steps (saved at the last), with the
     launch counts set to 0 just before it; asserts the launches of every
     kernel of the path (``launches``, per step) and prints samples/s (the
     median over the steps after two warm-up steps, less the last, whose
-    metrics are fetched at the save) and peak device memory. Returns the
-    run's directory, argv, counts and what the CLI printed."""
+    metrics are fetched at the save) and peak device memory. With ``k`` > 1
+    the run takes --steps-per-dispatch k: a wrapper counts its launches as
+    the warm-up and the capture run it (WARMUP_STEPS + 1 steps), not per
+    replay, and a tail shorter than k runs eagerly. With ``loop_cls`` (the
+    CLI's loop class) the run is the CLI's ``main`` spelled out, and the
+    loop is kept in LOOPS[name] for ``profile_loop``. Returns the run's
+    directory, argv, counts and what the CLI printed."""
     out = os.path.join(workdir, name.replace(" ", "_"))
     argv = argv + ["--max-steps", str(steps), "--save-interval", str(steps),
                    "--output-dir", out, "--device", "cuda"]
+    if k > 1:
+        argv += ["--steps-per-dispatch", str(k)]
     torch.cuda.synchronize(dev)  # the peak-memory reset needs the card's context
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(_Tee(sys.stdout)) as printed:
-        cli.main(argv)
+    with contextlib.redirect_stdout(_Tee(sys.stdout)) as printed, \
+            recorded_log([]) as raw:
+        if loop_cls is None:
+            cli.main(argv)
+        else:
+            LOOPS[name] = loop_cls(loop_cls.arg_parser().parse_args(argv))
+            LOOPS[name].loop()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    peak = PEAKS[name] = torch.cuda.max_memory_allocated(dev) / 2**30
+    RAW_LOGS[name] = raw
     log = _train_log(out)
     assert [s for s, _ in log] == list(range(1, steps + 1)), log
     assert all(np.isfinite(v) for _, f in log for v in f.values())
-    # The last step's metrics are fetched at the save, just after the one before.
-    rates = [f["samples_per_sec"] for _, f in log[2:-1]]
-    rate = (f"{float(np.median(rates)):.4f} samples/s (median of steps 3-{steps - 1}: "
-            f"{[round(r, 3) for r in rates]})" if rates else "no steady step")
+    # The last step's metrics are fetched at the save, just after the one
+    # before; with k > 1 the steps of a window share the window's rate, and
+    # the last window's is steady.
+    rates = [f["samples_per_sec"] for _, f in (log[2:-1] if k == 1 else log[-k:-k + 1])]
+    RATES[name] = float(np.median(rates)) if rates else float("nan")
+    rate = (f"{RATES[name]:.4f} samples/s (median of steps 3-{steps - 1}: "
+            f"{[round(r, 3) for r in rates]})" if k == 1 and rates else
+            f"{RATES[name]:.4f} samples/s (the last window of {k} replayed steps)"
+            if rates else "no steady step")
     print(f"training {name} on {smi}: {steps} steps in {seconds:.3f} s (build, data and "
           f"save included), {rate}, peak device memory "
           f"{peak:.2f} GiB, "
@@ -1489,31 +1552,44 @@ def training_run(dev, workdir: str, name: str, cli, argv, steps: int, launches, 
         print(f"  codebook_used {[f['codebook_used'] for _, f in log]}")
     for f in ("model.npz", "opt.pt"):
         assert os.path.exists(os.path.join(out, f)), f
+    calls = steps if k == 1 else WARMUP_STEPS + 1 + steps % k
     assert counts["group_norm_coeffs"] == counts["group_norm_apply"] == \
-        launches["forward"] * steps
+        launches["forward"] * calls
     assert counts["group_norm_backward"] == counts["_bwd_cluster"] == \
-        launches["backward"] * steps
+        launches["backward"] * calls
     assert counts["group_norm_stats"] == counts["_bwd_two_kernel"] == 0
-    assert counts["vq_assign"] == launches["vq"] * steps
+    assert counts["vq_assign"] == launches["vq"] * calls
     assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == 0
     return out, argv, counts, printed.getvalue()
 
 
+def profile_loop(dev, name: str, launches) -> None:
+    """Profile one step of the loop that training_run kept for ``name``,
+    as profile_train_step does, then let the loop go."""
+    _profile_step(dev, LOOPS.pop(name), name, launches)
+    torch.cuda.empty_cache()
+
+
 def profile_train_step(dev, loop_cls, argv, name: str, launches):
-    """Resume the run in argv's directory and profile one train step: its
-    kernel launches by class, asserted for the GroupNorm and VQ kernels."""
+    """Resume the run in argv's directory and profile one train step."""
     loop = loop_cls(loop_cls.arg_parser().parse_args(argv))
     assert loop.resume
+    _profile_step(dev, loop, name, launches)
+
+
+def _profile_step(dev, loop, name: str, launches) -> None:
+    """Profile one train step of ``loop`` (with --steps-per-dispatch, one
+    replay of the captured step, after the call that captures it): its
+    kernel launches by class, asserted for the GroupNorm and VQ kernels."""
     batch = loop.to_device(loop.prepare_batch(next(iter(loop.data_loader))))
     generator = step_generator(0, 10**6, dev)
-    n, counts = profile_call(lambda: loop.train_step(batch, generator),
-                             f"{name} train step", grad=True)
+    step = loop.graphed_step or loop.train_step
+    n, counts = profile_call(lambda: step(batch, generator), f"{name} train step", grad=True)
     assert counts.get("groupnorm stats + fold (CUDA)", 0) == launches["forward"], counts
     assert counts.get("groupnorm apply (Triton)", 0) == launches["forward"], counts
     assert counts.get("groupnorm backward (CUDA)", 0) == launches["backward"], counts
     assert counts.get("vq assign (CUDA)", 0) == launches["vq"], counts
     print(f"  {name} train step: {n} kernel launches")
-    del loop
 
 
 def train_step_card_vs_cpu(dev, name: str, model_kwargs, launches):
@@ -1739,9 +1815,311 @@ def training_paths(dev, workdir: str, clips: np.ndarray, smi: str):
     t0 = time.perf_counter()
     runs.update(wavegrad_paths(dev, workdir, clips, smi))
     print(f"wavegrad: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs.update(graph_training_paths(dev, workdir, smi, kept["vqvae bf16"]))
+    print(f"CUDA graphs, checkpointing and the flags: {time.perf_counter() - t0:.1f} s")
     return runs
 
 
+
+# ------------------------------------------------ phase 5: graphs, remat, .pt
+
+GRAPH_K = 4
+RESBLOCKS_VQVAE = 65 + 23  # unet64 predictor, unet128 encoder
+GRAPH_STEPS = 4  # one window: the other loops' runs at --steps-per-dispatch
+
+
+def _npz_leaf_errors(got_path: str, want_path: str):
+    """(the largest |got - want| of any parameter leaf over that leaf's
+    largest entry, its leaf, whether every array is the same bits)."""
+    with np.load(got_path) as got, np.load(want_path) as want:
+        assert got.files == want.files
+        same = all(np.array_equal(got[k], want[k]) for k in want.files)
+        worst, leaf = 0.0, None
+        for k in want.files:
+            if not k.startswith("params/"):
+                continue
+            w = want[k].astype(np.float64)
+            err = np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)
+            if err > worst:
+                worst, leaf = err, k
+    return worst, leaf, same
+
+
+def _loss_error(got, want) -> float:
+    """The largest relative difference of two runs' per-step losses."""
+    assert [s for s, _ in got] == [s for s, _ in want]
+    return max(abs(g["loss"] - w["loss"]) / abs(w["loss"]) for (_, g), (_, w) in zip(got, want))
+
+
+def _logged(raw):
+    """A run's logged values but samples/s (a wall-clock rate)."""
+    return [(step, {k: v for k, v in values.items() if k != "samples_per_sec"})
+            for step, values in raw]
+
+
+def _codebook_used(raw):
+    return [int(v["codebook_used"]) for _, v in raw]
+
+
+def _check_async_markers(out: str, steps: int) -> None:
+    """An --async-save run's log: '# saving @ steps' after the last step's
+    line, confirmed by one '# saved' after it; the files are down."""
+    with open(os.path.join(out, "train_log.txt")) as f:
+        lines = f.read().splitlines()
+    marker = lines.index(f"# saving @ {steps}")
+    assert lines[marker - 1].startswith(f"step {steps}:"), lines[marker - 1:]
+    assert lines[marker + 1:] == ["# saved"], lines[marker:]
+    for f in ("model.npz", "opt.pt", "model_ema_0.9999.npz"):
+        assert os.path.getsize(os.path.join(out, f)) > 0, f
+
+
+@contextlib.contextmanager
+def deterministic(on: bool):
+    """PyTorch's deterministic algorithms (cuDNN's, sorted index accumulation
+    for atomic adds) while on."""
+    if not on:
+        yield
+        return
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def graph_training_paths(dev, workdir: str, smi: str, flagship: str):
+    """--steps-per-dispatch, --grad-checkpoint, --async-save and
+    --profile-dir on the card. The bf16 flagship at K=4 for TRAIN_STEPS
+    steps against phase 5's eager run (``flagship``, the same seed) and a
+    second eager run, then both again with deterministic algorithms: the
+    per-step logged values, codebook_used, every parameter, EMA and AdamW
+    moment (the same bits with deterministic algorithms); samples/s, device
+    busy share, launches per step and peak memory at K=1 and K=4. The other five loops at K=4 for one window each (two with
+    --async-save, host and device snapshots; WaveGrad with --profile-dir),
+    their GroupNorm and VQ launches per replayed step from a profiled
+    replay. The flagship with --grad-checkpoint full and convs, bf16 and
+    f32: peak memory and samples/s against the un-checkpointed runs.
+    Returns {run name: counts}."""
+    runs = {}
+    gn_vqvae = GN_PER_PREDICTOR + GN_PER_ENCODER128
+    vqvae = per_step(gn_vqvae, gn_vqvae, 1)
+    argv = TRAIN_VQVAE_ARGV + ["--bf16"]
+    for name, k, exact in (("vqvae bf16 again", 1, False), ("vqvae bf16 k4", GRAPH_K, False),
+                           ("vqvae bf16 exact", 1, True), ("vqvae bf16 k4 exact", GRAPH_K, True)):
+        with deterministic(exact):
+            profiled_run = name == "vqvae bf16 k4"
+            out, full_argv, runs[name], _ = training_run(
+                dev, workdir, name, train_vqvae, argv, TRAIN_STEPS, vqvae, smi, k=k,
+                loop_cls=VQVAETrainLoop if profiled_run else None)
+        if profiled_run:
+            profile_loop(dev, name, vqvae)
+
+    def compare(a: str, b: str):
+        """(loss error, parameter error, its leaf, the same bits in every
+        file and every logged value) of two runs' logs and files."""
+        da, db = (os.path.join(workdir, n.replace(" ", "_")) for n in (a, b))
+        errs = _npz_leaf_errors(os.path.join(da, "model.npz"), os.path.join(db, "model.npz"))
+        same = errs[2] and _npz_leaf_errors(os.path.join(da, "model_ema_0.9999.npz"),
+                                            os.path.join(db, "model_ema_0.9999.npz"))[2]
+        oa, ob = (torch.load(os.path.join(d, "opt.pt"), weights_only=True) for d in (da, db))
+        same = same and all(torch.equal(v, ob["adamw"]["state"][i][k])
+                            for i, st in oa["adamw"]["state"].items() for k, v in st.items())
+        same = same and _logged(RAW_LOGS[a]) == _logged(RAW_LOGS[b])
+        return _loss_error(RAW_LOGS[a], RAW_LOGS[b]), errs[0], errs[1], same
+
+    results = {pair: compare(*pair) for pair in (
+        ("vqvae bf16 again", "vqvae bf16"), ("vqvae bf16 k4", "vqvae bf16"),
+        ("vqvae bf16 exact", "vqvae bf16 k4 exact"))}
+    print(f"flagship bf16, {TRAIN_STEPS} steps, on {smi}: loss error (relative), parameter "
+          f"error (of a leaf's largest entry, worst leaf), the same bits (logs, model, EMA, "
+          f"AdamW):")
+    for (a, b), (loss, param, leaf, same) in results.items():
+        print(f"  {a} against {b}: {loss:.3g}, {param:.3g} ({leaf}), {same}")
+    print(f"  codebook_used K=1 {_codebook_used(RAW_LOGS['vqvae bf16'])}, K=4 "
+          f"{_codebook_used(RAW_LOGS['vqvae bf16 k4'])}")
+    print(f"  samples/s K=1 {RATES['vqvae bf16']:.4f} (again {RATES['vqvae bf16 again']:.4f}, "
+          f"deterministic {RATES['vqvae bf16 exact']:.4f}), K=4 {RATES['vqvae bf16 k4']:.4f} "
+          f"(deterministic {RATES['vqvae bf16 k4 exact']:.4f}); peak device memory K=1 "
+          f"{PEAKS['vqvae bf16']:.2f} GiB, K=4 {PEAKS['vqvae bf16 k4']:.2f} GiB")
+    # With the default algorithms two eager runs differ (atomic adds in the
+    # backward); with deterministic ones the graphed run is the eager run.
+    assert results[("vqvae bf16 exact", "vqvae bf16 k4 exact")][3]
+    for name in ("vqvae bf16 again", "vqvae bf16 exact", "vqvae bf16 k4 exact"):
+        shutil.rmtree(os.path.join(workdir, name.replace(" ", "_")))
+
+    trace = os.path.join(workdir, "wavegrad_trace")
+    pretrained = ["--class-cond", "--pretrained-path", flagship]
+    for name, cli, loop_cls, argv, launches in (
+        ("classifier bf16 k4", train_classifier, ClassifierTrainLoop,
+         NEW_RUN_ARGV + ["--async-save"], per_step(GN_PER_CLASSIFIER, GN_PER_CLASSIFIER, 0)),
+        ("enc-pred bf16 k4", train_enc_pred, EncoderPredictorTrainLoop,
+         NEW_RUN_ARGV + ["--vq-vae-path", flagship, "--async-save", "--async-snapshot",
+                         "device"],
+         per_step(GN_PER_ENC_PRED + GN_PER_ENCODER128, GN_PER_ENC_PRED, 1)),
+        ("vqvae add-classes bf16 k4", train_vqvae_add, VQVAEAddClassesTrainLoop,
+         NEW_RUN_ARGV + pretrained, per_step(gn_vqvae, GN_PER_PREDICTOR - 1, 1)),
+        ("vqvae uncond bf16 k4", train_vqvae_uncond, VQVAEUncondTrainLoop,
+         NEW_RUN_ARGV + pretrained, vqvae),
+        ("wavegrad vqvae bf16 k4", train_vqvae, VQVAETrainLoop,
+         TRAIN_WAVEGRAD_ARGV + ["--bf16", "--profile-dir", trace], per_step(0, 0, 1)),
+    ):
+        out, full_argv, runs[name], _ = training_run(
+            dev, workdir, name, cli, argv, GRAPH_STEPS, launches, smi, k=GRAPH_K,
+            loop_cls=loop_cls)
+        if "--async-save" in argv:
+            _check_async_markers(out, GRAPH_STEPS)
+            snapshot = "device" if "device" in argv else "host"
+            print(f"  {name}: --async-save ({snapshot} snapshot) marked '# saving @ "
+                  f"{GRAPH_STEPS}' and '# saved'; the files are down")
+        profile_loop(dev, name, launches)
+        shutil.rmtree(out)
+    traces = [f for f in os.listdir(trace) if f.endswith(".json")]
+    with open(os.path.join(trace, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"  --profile-dir: {traces[0]}, {len(events)} events, {kernels} kernel records")
+    assert len(traces) == 1 and kernels > 0
+
+    # Activation checkpointing: per step, each ResBlock's two GroupNorms run
+    # again in the recompute (no convolution reruns under convs).
+    remat = per_step(gn_vqvae + 2 * RESBLOCKS_VQVAE, gn_vqvae, 1)
+    for dtype, k in (("bf16", 1), ("bf16", GRAPH_K), ("f32", 1)):
+        tag = "" if k == 1 else f" k{k}"
+        for policy in ("full", "convs"):
+            name = f"vqvae {dtype}{tag} remat {policy}"
+            argv = TRAIN_VQVAE_ARGV + (["--bf16"] if dtype == "bf16" else []) + [
+                f"--grad-checkpoint={policy}"]
+            out, _, runs[name], _ = training_run(
+                dev, workdir, name, train_vqvae, argv, TRAIN_STEPS if k > 1 else 5, remat,
+                smi, k=k, loop_cls=VQVAETrainLoop if k > 1 else None)
+            if k > 1:
+                profile_loop(dev, name, per_step(gn_vqvae + 2 * RESBLOCKS_VQVAE, gn_vqvae, 1))
+            shutil.rmtree(out)
+        none = f"vqvae {dtype}{tag}"
+        print(f"--grad-checkpoint, flagship {dtype} at K={k} on {smi}: peak device memory "
+              f"none {PEAKS[none]:.2f} GiB, full {PEAKS[f'{none} remat full']:.2f} GiB, "
+              f"convs {PEAKS[f'{none} remat convs']:.2f} GiB; samples/s none "
+              f"{RATES[none]:.4f}, full {RATES[f'{none} remat full']:.4f}, convs "
+              f"{RATES[f'{none} remat convs']:.4f}")
+    remat_grads(dev, remat)
+    return runs
+
+
+def remat_grads(dev, launches) -> None:
+    """One full-width VQ-VAE training forward and backward (unet64 +
+    unet128, batch 2 of 4 s, draws fixed) with --grad-checkpoint full and
+    convs against none, f32 (TF32 off) and bf16: each gradient leaf within
+    1e-4 (f32) or 2e-2 (bf16) of its largest entry, plus 1e-6 of the
+    largest gradient (a bias before a GroupNorm has a true gradient of 0);
+    the recompute's GroupNorm launches counted."""
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(31)
+    x = torch.from_numpy(np.stack([speech_like(s, SAMPLES) for s in (41, 42)]))[..., None]
+    draws = dict(ts=torch.tensor([0.3, 0.7]), epsilon=torch.randn(2, SAMPLES, 1, generator=gen))
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        model = VQVAE(pred_name="unet", base_channels=64, enc_name="unet128", num_labels=3,
+                      dtype=dtype)
+        seed_weights(model, 32)
+        model = model.to(dev)
+
+        def grads(policy):
+            model.set_remat(policy)
+            model.zero_grad(set_to_none=True)
+            out = model.losses(x.to(dev), labels=torch.tensor([0, 2], device=dev), train=True,
+                               **{k: v.to(dev) for k, v in draws.items()})
+            (out["mse"] + out["vq_loss"]).backward()
+            return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+        want = grads(None)
+        top = max(g.abs().max().item() for g in want.values())
+        for policy in ("full", "convs"):
+            reset_counts()
+            got = grads(policy)
+            counts = read_counts()
+            worst, leaf = 0.0, None
+            for n, w in want.items():
+                err = (got[n] - w).abs().max().item() / (w.abs().max().item() + 1e-6 * top)
+                if err > worst:
+                    worst, leaf = err, n
+            print(f"  full-width step, remat {policy} vs none, {dtype}: worst gradient leaf "
+                  f"{leaf} {worst:.3g} of its scale (limit {tol}), GroupNorm launches "
+                  f"{counts['group_norm_coeffs']} forward, {counts['group_norm_backward']} "
+                  f"backward")
+            assert worst <= tol, (policy, dtype, leaf, worst)
+            assert counts["group_norm_coeffs"] == launches["forward"]
+            assert counts["group_norm_backward"] == launches["backward"]
+            del got
+        del model, want
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def reference_state_dict(model) -> dict:
+    """``model``'s weights in the released reference checkpoints' layout:
+    the port's reference mapper run on a state_dict that answers every
+    lookup with a marker array, each flax path traced back to its key."""
+    from vq_voice_swap_torch.convert import params_to_jax, torch_import
+
+    class Markers(dict):
+        def __contains__(self, key):
+            if key.endswith(".post_cond.2.weight"):
+                return False
+            probe = re.search(r"\.(\d+)\.(pre_cond\.2|0\.ln)\.weight$", key)
+            return probe is None or int(probe.group(1)) < 64
+
+        def __missing__(self, key):
+            self[key] = np.zeros((1, 1, 1), np.float32)
+            return self[key]
+
+    markers = Markers()
+    flat = torch_import.convert_state_dict("VQVAE", model.save_kwargs(), markers)
+    key_of = {id(v): k for k, v in markers.items()}
+    mine = params_to_jax(model)
+    sd = {}
+    for path, v in flat.items():
+        if path.startswith("buffers/") or path not in mine:
+            continue  # the usage counts (a converted copy) go in below
+        key = key_of[id(v if v.base is None else v.base)]
+        arr = mine[path]
+        if path.endswith("kernel"):
+            arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    sd["vq.usage_count"] = torch.from_numpy(mine["buffers/vq/usage_count"])
+    assert len(sd) == len(mine), (len(sd), len(mine))
+    return sd
+
+
+def reference_pt_swap(dev, workdir: str, ckpt: str) -> None:
+    """The swap model of phase 3 written as a released-reference ``.pt``
+    (its state_dict in the reference layout and reference kwargs) loads on
+    the card through ModelBase.load, and sample_vqvae swaps with it to the
+    same bits as with the npz of the same weights."""
+    from vq_voice_swap_torch.model_base import ModelBase
+
+    model = ModelBase.load(ckpt, device="cpu")
+    kwargs = {**model.save_kwargs(), "cond_channels": model.cond_channels,
+              "dropout": (model.dropout,)}
+    pt = os.path.join(workdir, "reference.pt")
+    torch.save({"kwargs": kwargs, "state_dict": reference_state_dict(model)}, pt)
+    loaded = ModelBase.load(pt, device=dev)
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k].cpu(), v), k
+    del loaded
+    src = os.path.join(workdir, "in.wav")
+    outs = []
+    for path in (ckpt, pt):
+        out = path + ".swap.wav"
+        sample_vqvae.main(["--label", "7", "--input-file", src, "--sample-steps", "5",
+                           "--sampler", "ddpm", "--device", "cuda", path, out])
+        outs.append(_wav_frames(out)[1])
+    same = np.array_equal(outs[0], outs[1])
+    print(f"reference .pt ({os.path.getsize(pt) / 2**20:.1f} MiB, {len(model.state_dict())} "
+          f"tensors) loaded on the card through ModelBase.load; 5-step DDPM swap with it "
+          f"and with the npz of the same weights: same bits {same}")
+    assert same and outs[0].shape[0] == SAMPLES
 
 # ------------------------------------------------------------------ phase 6
 
@@ -2048,6 +2426,7 @@ def main() -> int:
             f"{k} {sum(c[k] for c in training.values())}" for k in (
                 "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
         check_tickets("the training paths")
+        reference_pt_swap(dev, workdir, ckpt)
         print(f"phase 5: {time.perf_counter() - t_start:.1f} s")
         # Real-audio data and eval, from the tones flagship's bf16 run
         # (training_run's directory for "vqvae bf16"), phase 3's

@@ -609,3 +609,170 @@ def test_stat_generate_on_the_card(cuda_gen, tmp_path):
         assert stats["mean"].shape == (64,) and stats["cov"].shape == (64, 64)
         assert stats["probs"].shape == (6, 2)
         assert all(np.isfinite(stats[k]).all() for k in stats.files)
+
+
+@pytest.mark.cuda
+def test_kernels_captured_in_a_cuda_graph_replay_as_eager_launches(cuda_gen):
+    """The GroupNorm forward and backward (GroupNormFunction: the statistics,
+    apply and cluster backward kernels) and VQ assign captured in one CUDA
+    graph, replayed 3 times on new inputs copied into its static ones: each
+    replay's outputs are the eager launches' bits, the wrappers count the
+    capture and not the replays, and every ticket counter is 0 after."""
+    shape, groups = (2, 64, 3000), 32
+    x0, w, b, _ = _coeffs_case(cuda_gen, shape, torch.float32, False)
+    ca = torch.randn(2, 64, generator=cuda_gen, device="cuda")
+    cb = torch.randn(2, 64, generator=cuda_gen, device="cuda")
+    d = torch.randn(512, 1024, generator=cuda_gen, device="cuda")
+
+    def inputs():
+        return (torch.randn(shape, generator=cuda_gen, device="cuda") + 1.0,
+                torch.randn(shape, generator=cuda_gen, device="cuda"),
+                torch.randn(3201, 1024, generator=cuda_gen, device="cuda"))
+
+    def run(x, dy, rows):
+        x = x.detach().requires_grad_()
+        y = gn.group_norm(x, w, b, groups, 1e-5, True, (ca, cb))
+        (dx,) = torch.autograd.grad(y, x, dy)
+        return (y.detach(), dx, *vqa.vq_assign(d, rows))
+
+    static = inputs()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # builds this stream's ticket buffer
+        run(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    launches = [f.launches for f in (gn.group_norm_coeffs, gn.group_norm_apply,
+                                     gn.group_norm_backward, vqa.vq_assign)]
+    with torch.cuda.graph(graph, stream=stream):
+        outs = run(*static)
+    assert [f.launches for f in (gn.group_norm_coeffs, gn.group_norm_apply,
+                                 gn.group_norm_backward, vqa.vq_assign)] == [
+        n + 1 for n in launches]
+    for _ in range(3):
+        new = inputs()
+        for s, v in zip(static, new):
+            s.copy_(v)
+        graph.replay()
+        want = run(*new)
+        for got, ref in zip(outs, want):
+            assert torch.equal(got, ref)
+    assert [f.launches for f in (gn.group_norm_coeffs, gn.group_norm_apply,
+                                 gn.group_norm_backward, vqa.vq_assign)] == [
+        n + 4 for n in launches]
+    torch.cuda.synchronize()
+    for buf in ticket_buffers():
+        assert not buf.any()
+
+
+def _vqvae_train_step(model):
+    """A TrainStep of the VQ-VAE loop's loss, drawer, codebook rule (revival
+    on) and one EMA, on a copy of ``model``."""
+    import types
+
+    from vq_voice_swap_torch.train import EMA, TrainStep, VQUpdateRule, VQVAETrainLoop
+    from vq_voice_swap_torch.train.state import build_optimizer
+    from vq_voice_swap_torch.vq import VQLossConfig
+
+    m = copy.deepcopy(model)
+    stub = types.SimpleNamespace(
+        model=m, args=types.SimpleNamespace(class_cond=True, jitter=0.1),
+        vq_loss_config=lambda: VQLossConfig())
+    opt = build_optimizer(m, lr=1e-3, lr_final=1e-4, lr_anneal_steps=8, grad_clip=1.0)
+    return TrainStep(m, VQVAETrainLoop.build_loss_fn(stub), opt, [EMA(m, 0.9)],
+                     microbatches=2, vq_rule=VQUpdateRule(dead_rate=2, revive=True),
+                     drawer=VQVAETrainLoop.build_drawer(stub))
+
+
+@pytest.fixture
+def deterministic():
+    """PyTorch's deterministic algorithms (cuDNN's, and sorted index
+    accumulation in place of atomics) during the test."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+    torch.backends.cudnn.deterministic = saved[2]
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_is_the_eager_step_bit_for_bit(cuda_gen, deterministic):
+    """Four VQ-VAE train steps (base 4, dropout, jitter, two microbatches,
+    the LR anneal and the clip, codes dying and revived), the forwards and
+    backward replayed from a CUDA graph, against the eager steps on the
+    same generators, with deterministic algorithms: the same losses and
+    codebook_used, and every parameter, EMA, usage count and AdamW moment
+    the same bits; the ticket counters 0 after."""
+    from vq_voice_swap_torch.train.graphs import GraphedTrainStep
+    from vq_voice_swap_torch.util import step_generator
+    from vq_voice_swap_torch.vq_vae import VQVAE
+
+    model = _seeded(VQVAE(pred_name="unet", base_channels=4, enc_name="unet", num_labels=3,
+                          dictionary_size=16, dead_rate=2, dropout=0.1), 6).cuda()
+    batches = [{"samples": 0.5 * torch.tanh(torch.randn(4, 2048, generator=cuda_gen,
+                                                         device="cuda")),
+                "label": torch.tensor([0, 1, 2, 1], device="cuda")} for _ in range(4)]
+    eager, graphed = _vqvae_train_step(model), _vqvae_train_step(model)
+    runner = GraphedTrainStep(graphed)
+    launches = gn.group_norm_coeffs.launches
+    got, want = [], []
+    for i, batch in enumerate(batches):
+        want.append(eager(batch, step_generator(0, i, torch.device("cuda"))))
+        got.append(runner(batch, step_generator(0, i, torch.device("cuda"))))
+    per_forward = sum(type(m).__name__ == "ResBlock" for m in model.modules()) * 2 + 2
+    # Eager: 4 steps of 2 forwards; graphed: the warm-up and the capture.
+    assert gn.group_norm_coeffs.launches - launches == (8 + 2 * 3) * per_forward
+    for g, w in zip(got, want):
+        assert torch.equal(g["loss"], w["loss"]) and torch.equal(g["mses"], w["mses"])
+        assert g["codebook_used"].item() == w["codebook_used"].item()
+    assert min(w["codebook_used"].item() for w in want) < 16  # revival ran
+    for a, b in ((graphed.model, eager.model), (graphed.emas[0].model, eager.emas[0].model)):
+        for (k, v), (_, u) in zip(a.state_dict().items(), b.state_dict().items()):
+            assert torch.equal(v, u), k
+    for p, q in zip(graphed.optimizer.params, eager.optimizer.params):
+        for k, v in eager.optimizer.adamw.state[q].items():
+            assert torch.equal(graphed.optimizer.adamw.state[p][k], v), k
+    assert graphed.optimizer.count == eager.optimizer.count == 4
+    torch.cuda.synchronize()
+    for buf in ticket_buffers():
+        assert not buf.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "convs"])
+def test_grad_checkpoint_on_the_card_gives_the_gradients(cuda_gen, deterministic, policy):
+    """A VQ-VAE training forward and backward at base 4 with dropout, f32
+    (TF32 off), through the GroupNorm kernels, with deterministic
+    algorithms (atomic adds would give a conv bias before a GroupNorm, whose
+    true gradient is 0, other rounding noise each run): remat against none
+    within 1e-5 of each gradient leaf's largest entry plus 1e-7 of the
+    largest gradient; the recompute relaunches each ResBlock's two
+    GroupNorms and the backward launches stay one per GroupNorm."""
+    from vq_voice_swap_torch.vq_vae import VQVAE
+
+    model = _seeded(VQVAE(pred_name="unet", base_channels=4, enc_name="unet", num_labels=3,
+                          dropout=0.1), 7).cuda()
+    x = 0.5 * torch.tanh(torch.randn(2, 2048, 1, generator=cuda_gen, device="cuda"))
+    blocks = sum(type(m).__name__ == "ResBlock" for m in model.modules())
+
+    def grads(remat):
+        model.set_remat(remat)
+        model.zero_grad(set_to_none=True)
+        launches = (gn.group_norm_coeffs.launches, gn.group_norm_backward.launches)
+        out = model.losses(x, labels=torch.tensor([0, 2], device="cuda"), train=True,
+                           jitter=0.1, generator=torch.Generator("cuda").manual_seed(3))
+        (out["mse"] + out["vq_loss"]).backward()
+        counts = (gn.group_norm_coeffs.launches - launches[0],
+                  gn.group_norm_backward.launches - launches[1])
+        return {n: p.grad.clone() for n, p in model.named_parameters()}, counts
+
+    want, (fwd, bwd) = grads(None)
+    got, counts = grads(policy)
+    assert counts == (fwd + 2 * blocks, bwd)
+    top = max(g.abs().max().item() for g in want.values())
+    for n, w in want.items():
+        err = (got[n] - w).abs().max().item()
+        assert err <= 1e-5 * w.abs().max().item() + 1e-7 * top, (n, err)

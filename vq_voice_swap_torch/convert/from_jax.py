@@ -15,7 +15,7 @@ a rule rather than a table:
 """
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -61,8 +61,11 @@ def _jax_module_path(name: str) -> list:
     return parts
 
 
-def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The port's parameters and buffers -> flat JAX checkpoint arrays."""
+def params_to_jax(model: nn.Module,
+                  state: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, np.ndarray]:
+    """The port's parameters and buffers -> flat JAX checkpoint arrays;
+    ``state`` (a state_dict of the model's, e.g. a snapshot) replaces the
+    module's own tensors."""
     flat = {}
     for name, module in model.named_modules():
         prefix = _jax_module_path(name)
@@ -71,6 +74,8 @@ def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
             ("buffers", module.named_buffers(recurse=False)),
         ):
             for leaf, t in tensors:
+                if state is not None:
+                    t = state[f"{name}.{leaf}" if name else leaf]
                 arr = t.detach().cpu().numpy()
                 if leaf == "weight" and isinstance(module, (nn.Conv1d, nn.Linear)):
                     leaf = "kernel"

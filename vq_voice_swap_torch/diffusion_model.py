@@ -10,7 +10,8 @@ import torch
 from .diffusion import Diffusion, make_schedule
 from .model_base import ModelBase, register_model
 from .models import make_predictor
-from .models.layers import Dropout
+from .models.layers import Dropout, draw_keep_mask
+from .models.unet import set_remat
 
 __all__ = ["DiffusionModel", "add_labels_to_params", "label_param_paths"]
 
@@ -61,8 +62,8 @@ class DiffusionModel(ModelBase):
     """The predictor module plus the diffusion process it is sampled with.
 
     ``dropout`` is the predictor's dropout rate in a training forward
-    (``train=True``). ``remat`` (rematerialisation in the backward) is kept
-    so checkpoints round-trip between the packages and is not run.
+    (``train=True``). ``remat`` rematerialises the UNet ResBlocks in a
+    training backward ("full" or "convs", ``models.layers.remat_policy``).
     ``act_int8_min_t`` (int8 activation storage) is not ported.
     ``fuse_levels`` is a serving option of the UNet predictor (see
     ``UNetPredictor``), set at load time and never saved.
@@ -103,6 +104,7 @@ class DiffusionModel(ModelBase):
             dropout=dropout,
             dtype=self.compute_dtype,
             fuse_levels=fuse_levels,
+            remat=remat,
         )
         self.diffusion = Diffusion(make_schedule(schedule_name))
 
@@ -122,6 +124,36 @@ class DiffusionModel(ModelBase):
     @property
     def downsample_rate(self) -> int:
         return self.predictor.downsample_rate
+
+    def set_remat(self, remat: Union[bool, str, None]) -> None:
+        """Switch the UNet ResBlocks' remat policy (a training setting,
+        saved with the kwargs like the JAX package's ``remat``)."""
+        set_remat(self, remat)  # raises on an unknown policy
+        self.remat = remat or False
+
+    def dropout_draws(self, n: int, t: int, generator: Optional[torch.Generator], device,
+                      train: bool) -> Optional[List[torch.Tensor]]:
+        """The keep-masks a training forward of n x t samples draws, in
+        ResBlock call order (None without dropout)."""
+        if not (train and self.dropout):
+            return None
+        keep_prob = 1.0 - self.dropout
+        return [draw_keep_mask(shape, keep_prob, generator, device)
+                for shape in self.predictor.dropout_shapes(n, t)]
+
+    def loss_draws(self, x: torch.Tensor, generator: Optional[torch.Generator],
+                   train: bool = False) -> Dict[str, Any]:
+        """Every random draw of ``losses(x, ...)``, in the order and shapes
+        it draws them: ``ts``, ``noise``, then the dropout masks."""
+        n = x.shape[0]
+        draws: Dict[str, Any] = {
+            "ts": torch.rand((n,), generator=generator, device=x.device),
+            "noise": torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device),
+        }
+        masks = self.dropout_draws(n, x.shape[1], generator, x.device, train)
+        if masks is not None:
+            draws["dropout_masks"] = masks
+        return draws
 
     def predict_eps(
         self,

@@ -1,6 +1,8 @@
 """Self-describing models: a registry of model classes, save/load through the
 JAX package's ``.npz`` format (``ModelBase.load`` builds whatever class the
 manifest names), and the serving overrides ``dtype`` and ``fuse_levels``.
+``load`` also takes a released reference ``.pt`` checkpoint, converted on
+the fly (``convert/torch_import.py``), as the JAX package's does.
 
 In the JAX package a model is a config object and its variables travel
 separately; here a model is an ``nn.Module`` that owns its weights, so
@@ -8,12 +10,13 @@ separately; here a model is an ``nn.Module`` that owns its weights, so
 """
 
 import importlib
-from typing import Any, Dict, Optional, Type
+from typing import Any, Dict, Optional, Tuple, Type
 
 from torch import nn
 
 from .checkpoint import load_checkpoint, save_checkpoint
 from .convert import params_from_jax, params_to_jax
+from .convert.torch_import import looks_like_torch_file, state_dict_from_torch_checkpoint
 from .util import resolve_device
 
 __all__ = ["ModelBase", "register_model"]
@@ -32,15 +35,33 @@ def _ensure_registered() -> None:
         importlib.import_module(mod, package=__package__)
 
 
+def _load_any_checkpoint(path: str) -> Tuple[str, Dict[str, Any], Dict[str, Any]]:
+    """(class name, kwargs, state_dict) of an npz checkpoint or a reference
+    ``.pt``. A real torch file that fails to convert shows the conversion
+    error, not the npz reader's."""
+    try:
+        class_name, kwargs, flat = load_checkpoint(path)
+        return class_name, kwargs, params_from_jax(flat)
+    except Exception as npz_err:
+        try:
+            return state_dict_from_torch_checkpoint(path)
+        except Exception as torch_err:
+            if looks_like_torch_file(path):
+                raise torch_err from npz_err
+            raise npz_err from torch_err
+
+
 class ModelBase(nn.Module):
     """Base for models that save their constructor kwargs beside weights."""
 
     def save_kwargs(self) -> Dict[str, Any]:
         raise NotImplementedError
 
-    def save(self, path: str) -> None:
+    def save(self, path: str, state: Optional[Dict[str, Any]] = None) -> None:
+        """Write the model (or ``state``, a state_dict of its, such as a
+        snapshot) as a JAX-format ``.npz``."""
         save_checkpoint(
-            path, type(self).__name__, self.save_kwargs(), params_to_jax(self)
+            path, type(self).__name__, self.save_kwargs(), params_to_jax(self, state)
         )
 
     @classmethod
@@ -55,7 +76,7 @@ class ModelBase(nn.Module):
         runs the UNet predictor's first levels through the fused ResBlock
         kernels. Neither is written back by ``save``. ``frozen`` loads the
         parameters with ``requires_grad`` off."""
-        class_name, kwargs, flat = load_checkpoint(path)
+        class_name, kwargs, state = _load_any_checkpoint(path)
         _ensure_registered()
         model_cls = _REGISTRY.get(class_name)
         if model_cls is None:
@@ -70,5 +91,5 @@ class ModelBase(nn.Module):
             kwargs = {**kwargs, "fuse_levels": fuse_levels}
         device = resolve_device(device)
         model = model_cls(**kwargs)
-        model.load_state_dict(params_from_jax(flat))
+        model.load_state_dict(state)
         return model.to(device).eval().requires_grad_(not frozen)

@@ -6,14 +6,25 @@ Counterpart of ``vq_voice_swap_tpu/models/layers.py`` without its int8
 (``convert/from_jax.py``). Parameters stay float32; a module computes in
 its input's dtype and casts each parameter per op, as flax does with a
 compute ``dtype``. GroupNorm statistics are float32 whatever the dtype.
+
+A ResBlock's ``remat`` policy (the counterpart of the JAX package's
+``remat``, ``vq_voice_swap_tpu/models/unet.py:38-63``) rematerialises it in
+a training backward: "full" saves the block's inputs alone and reruns the
+block; "convs" also saves ``conv_in``'s output and reruns only the norm,
+GELU and FiLM chains, never a convolution.
 """
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops.group_norm import group_norm
 
@@ -32,6 +43,7 @@ __all__ = [
     "nearest_resize_1d",
     "ResBlock",
     "Dropout",
+    "remat_policy",
 ]
 
 
@@ -185,13 +197,54 @@ class Dropout:
         self.generator = generator
         self.masks = None if masks is None else iter(masks)
 
-    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+    def keep_mask(self, shape: Sequence[int], device) -> torch.Tensor:
+        """The next call's bool keep-mask: the next of ``masks``, or drawn."""
         if self.masks is not None:
-            keep = next(self.masks).to(h.device)
-        else:
-            keep = torch.rand(h.shape, generator=self.generator,
-                              device=h.device) < self.keep_prob
-        return torch.where(keep, h / self.keep_prob, torch.zeros_like(h))
+            return next(self.masks).to(device)
+        return draw_keep_mask(shape, self.keep_prob, self.generator, device)
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        return apply_keep_mask(h, self.keep_mask(h.shape, h.device), self.keep_prob)
+
+
+def draw_keep_mask(shape: Sequence[int], keep_prob: float,
+                   generator: Optional[torch.Generator], device) -> torch.Tensor:
+    return torch.rand(tuple(shape), generator=generator, device=device) < keep_prob
+
+
+def apply_keep_mask(h: torch.Tensor, keep: torch.Tensor, keep_prob: float) -> torch.Tensor:
+    return torch.where(keep, h / keep_prob, torch.zeros_like(h))
+
+
+def remat_policy(remat: Union[bool, str, None]) -> Optional[str]:
+    """The rematerialisation policy a ``remat`` setting names: None (off),
+    "full" (True or "full") or "convs"; a ValueError on anything else, so a
+    typo does not fall back to another policy."""
+    if not remat:
+        return None
+    if remat is True or remat == "full":
+        return "full"
+    if remat == "convs":
+        return "convs"
+    raise ValueError(f"unknown remat policy {remat!r}; expected True/'full' or 'convs'")
+
+
+def _save_first_conv():
+    """Selective-checkpoint contexts that save the region's first
+    convolution's output (``conv_in``) and recompute every other op. The
+    kernels' output buffers (``torch.empty``) are recomputed too, so a
+    recomputed GroupNorm writes fresh statistics into fresh buffers."""
+    seen = {False: 0, True: 0}
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is torch.ops.aten.convolution.default:
+            first = seen[ctx.is_recompute] == 0
+            seen[ctx.is_recompute] += 1
+            if first:
+                return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 class ResBlock(nn.Module):
@@ -202,7 +255,15 @@ class ResBlock(nn.Module):
 
     ``norm_mid`` carries the GELU that follows the FiLM, so norm, FiLM and
     GELU are one apply kernel; a training forward's ``Dropout`` follows it,
-    before ``conv_out``.
+    before ``conv_out``. Its keep-mask is taken before the block runs, so a
+    rematerialised block reruns with the same mask.
+
+    ``remat`` ("full", "convs" or None, see ``remat_policy``) applies when
+    grad is enabled. "convs" checkpoints the main path alone: in the
+    port's models the skip path's 1x1 projection exists only where the
+    block keeps its length, so its input is the block input that the
+    checkpoint saves anyway; the backward's recompute stops when it has
+    rebuilt ``conv_out``'s input, before that convolution runs.
     """
 
     def __init__(
@@ -212,10 +273,13 @@ class ResBlock(nn.Module):
         emb_channels: Optional[int] = None,
         scale_factor: float = 1.0,
         dilation: int = 2,
+        remat: Union[bool, str, None] = None,
     ):
         super().__init__()
         out_ch = out_channels or in_channels
         self.scale_factor = scale_factor
+        self.out_channels = out_ch
+        self.remat = remat_policy(remat)
         self.norm_in = GroupNorm(in_channels, use_gelu=True)
         self.conv_in = Conv1d(in_channels, out_ch, 3)
         self.norm_mid = GroupNorm(out_ch, use_gelu=True)
@@ -234,22 +298,50 @@ class ResBlock(nn.Module):
             return avg_pool_1d(x, int(round(1.0 / self.scale_factor)))
         return nearest_upsample_1d(x, int(round(self.scale_factor)))
 
+    def out_length(self, t: int) -> int:
+        if self.scale_factor == 1.0:
+            return t
+        if self.scale_factor < 1.0:
+            return t // int(round(1.0 / self.scale_factor))
+        return t * int(round(self.scale_factor))
+
     def forward(
         self, x: torch.Tensor, emb: Optional[torch.Tensor] = None,
         dropout: Optional[Dropout] = None,
     ) -> torch.Tensor:
         if (emb is not None) != (self.cond_proj is not None):
             raise ValueError("pass an embedding iff the block was built with one")
+        keep, keep_prob = None, 1.0
+        if dropout is not None:
+            n, _, t = x.shape
+            keep = dropout.keep_mask((n, self.out_channels, self.out_length(t)), x.device)
+            keep_prob = dropout.keep_prob
+        if self.remat is None or not torch.is_grad_enabled():
+            return self._block(x, emb, keep, keep_prob)
+        if self.remat == "full":
+            return checkpoint(self._block, x, emb, keep, keep_prob, use_reentrant=False,
+                              preserve_rng_state=False)
+        h = checkpoint(self._main, x, emb, keep, keep_prob, use_reentrant=False,
+                       preserve_rng_state=False, context_fn=_save_first_conv)
+        return self._skip(x) + h
+
+    def _block(self, x, emb, keep, keep_prob):
+        h = self._main(x, emb, keep, keep_prob)
+        return self._skip(x) + h
+
+    def _main(self, x, emb, keep, keep_prob):
         h = self.conv_in(self._resize(self.norm_in(x)))
         film = None
         if emb is not None:
             cond_a, cond_b = linear(gelu(emb), self.cond_proj).chunk(2, dim=-1)
             film = (cond_a, cond_b)
         h = self.norm_mid(h, film)
-        if dropout is not None:
-            h = dropout(h)
-        h = self.conv_out(h)
+        if keep is not None:
+            h = apply_keep_mask(h, keep, keep_prob)
+        return self.conv_out(h)
+
+    def _skip(self, x):
         skip = self._resize(x)
         if self.skip_proj is not None:
             skip = self.skip_proj(skip)
-        return skip + h
+        return skip

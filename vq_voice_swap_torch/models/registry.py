@@ -1,9 +1,12 @@
 """Name-based model factories (counterpart of
 ``vq_voice_swap_tpu/models/registry.py``): predictors "unet" | "wavegrad";
 encoders "unet" | "unet128" | "unet128-dilated" | "wavegrad" |
-"conv-mfcc-ulaw" | "conv-mfcc-ulaw-v2" | "conv-mfcc-linear"."""
+"conv-mfcc-ulaw" | "conv-mfcc-ulaw-v2" | "conv-mfcc-linear".
 
-from typing import Optional
+``remat`` reaches the UNet predictor and the UNet encoders, as in the JAX
+package; the WaveGrad and MFCC modules take no remat and ignore it."""
+
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -23,6 +26,7 @@ def make_predictor(
     dropout: float = 0.0,
     dtype: Optional[torch.dtype] = None,
     fuse_levels: int = 0,
+    remat: Union[bool, str, None] = None,
 ) -> nn.Module:
     """Create an epsilon-predictor module from a human-readable name;
     ``fuse_levels`` is UNetPredictor's serving option. ``dropout`` is run
@@ -34,6 +38,7 @@ def make_predictor(
             num_labels=num_labels,
             dtype=dtype,
             fuse_levels=fuse_levels,
+            remat=remat,
         )
     if pred_name == "wavegrad":
         if dropout:
@@ -57,12 +62,14 @@ def make_encoder(
     base_channels: int = 32,
     cond_mult: int = 16,
     dtype: Optional[torch.dtype] = None,
+    remat: Union[bool, str, None] = None,
 ) -> nn.Module:
     """Create an encoder module from a human-readable name."""
     out_channels = base_channels * cond_mult
     if enc_name == "unet":
         return UNetEncoder(
-            base_channels=base_channels, out_channels=out_channels, dtype=dtype
+            base_channels=base_channels, out_channels=out_channels, dtype=dtype,
+            remat=remat,
         )
     if enc_name in ("unet128", "unet128-dilated"):
         return UNetEncoder(
@@ -71,6 +78,7 @@ def make_encoder(
             out_dilations=(4, 8, 16, 32) if enc_name == "unet128-dilated" else (),
             out_channels=out_channels,
             dtype=dtype,
+            remat=remat,
         )
     if enc_name == "conv-mfcc-ulaw":
         return ConvMFCCEncoder(

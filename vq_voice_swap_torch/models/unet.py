@@ -1,5 +1,7 @@
 """1-D UNet epsilon-predictor and encoder (counterpart of
-``vq_voice_swap_tpu/models/unet.py``, without remat or int8 storage).
+``vq_voice_swap_tpu/models/unet.py``, without int8 storage). ``remat``
+("full", "convs" or off; see ``layers.remat_policy``) rematerialises every
+ResBlock in a training backward, as the JAX package's ``remat`` does.
 
 Public inputs and outputs are channel-last [N, T, C]; the blocks run on
 [N, C, T]. ``dtype`` is the compute dtype (None = float32): inputs are cast
@@ -14,7 +16,7 @@ trick of that module (packing 64 channels into 128 lanes) has no
 counterpart here.
 """
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -31,12 +33,21 @@ from .layers import (
     gelu,
     linear,
     nearest_resize_1d,
+    remat_policy,
 )
 
 # Routes of a block in UNetPredictor.forward.
 _PLAIN, _FUSED, _FUSED_TWO_INPUTS = "plain", "fused", "fused, two inputs"
 
-__all__ = ["UNetPredictor", "UNetEncoder"]
+__all__ = ["UNetPredictor", "UNetEncoder", "set_remat"]
+
+
+def set_remat(module: nn.Module, remat: Union[bool, str, None]) -> None:
+    """Set every ResBlock under ``module`` to one remat policy."""
+    policy = remat_policy(remat)
+    for m in module.modules():
+        if isinstance(m, ResBlock):
+            m.remat = policy
 
 
 class UNetPredictor(nn.Module):
@@ -67,6 +78,7 @@ class UNetPredictor(nn.Module):
         out_channels: int = 1,
         dtype: Optional[torch.dtype] = None,
         fuse_levels: int = 0,
+        remat: Union[bool, str, None] = None,
     ):
         super().__init__()
         ch = base_channels
@@ -129,10 +141,20 @@ class UNetPredictor(nn.Module):
 
         self.out_norm = GroupNorm(cur, use_gelu=True)
         self.out_conv = Conv1d(cur, out_channels, 3)
+        set_remat(self, remat)
 
     @property
     def downsample_rate(self) -> int:
         return 2 ** (len(self.channel_mult) - 1)
+
+    def dropout_shapes(self, n: int, t: int) -> List[Tuple[int, int, int]]:
+        """The [N, C, T] shape of each ResBlock's dropout keep-mask, in call
+        order, for an input of n x t samples."""
+        shapes = []
+        for b in (*self.down_blocks, *self.middle_blocks, *self.up_blocks):
+            t = b.out_length(t)
+            shapes.append((n, b.out_channels, t))
+        return shapes
 
     def forward(
         self,
@@ -198,6 +220,7 @@ class UNetEncoder(nn.Module):
         in_channels: int = 1,
         out_channels: int = 512,
         dtype: Optional[torch.dtype] = None,
+        remat: Union[bool, str, None] = None,
     ):
         super().__init__()
         ch = base_channels
@@ -217,6 +240,7 @@ class UNetEncoder(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.out_norm = GroupNorm(cur, use_gelu=True)
         self.out_conv = Conv1d(cur, out_channels, 3)
+        set_remat(self, remat)
 
     @property
     def downsample_rate(self) -> int:

@@ -5,12 +5,15 @@
 Lines are ``step N: k=v k=v ...`` with five decimals; a ``# saved`` line
 follows each checkpoint. On resume the log is truncated just past the
 newest save record and ``start_step`` is the last step logged before it.
-The JAX package's asynchronous saves also write ``# saving @ N`` markers,
-each confirmed by a later ``# saved``: the resume scan reads them as it
-does (this port saves synchronously and writes none).
+An asynchronous save (``--async-save``) writes ``# saving @ N`` when it
+takes its snapshot of step N, and its worker thread writes the confirming
+``# saved`` when the files are down, possibly after later step lines; the
+resume scan pairs them as the JAX package's does. Writes hold a lock, since
+the worker writes too.
 """
 
 import re
+import threading
 from typing import Tuple
 
 __all__ = ["Logger", "SAVED_MSG"]
@@ -55,6 +58,7 @@ class Logger:
 
     def __init__(self, out_filename: str, resume: bool = False):
         self.start_step = 0
+        self._lock = threading.Lock()
         if not resume:
             self.out_file = open(out_filename, "w+")
             return
@@ -80,13 +84,22 @@ class Logger:
     def log(self, step: int, **kwargs) -> None:
         fields = " ".join(f"{k}={v:.05f}" for k, v in kwargs.items())
         line = f"step {step + self.start_step}: {fields}"
-        self.out_file.write(line + "\n")
-        self.out_file.flush()
+        self._write(line + "\n")
         print(line)
 
+    def mark_saving(self, step: int) -> None:
+        """The marker of an asynchronous save of the state after ``step``
+        (counted as ``log`` counts); ``mark_save`` confirms it."""
+        self._write(f"# saving @ {step + self.start_step}\n")
+
     def mark_save(self) -> None:
-        self.out_file.write(SAVED_MSG)
-        self.out_file.flush()
+        self._write(SAVED_MSG)
+
+    def _write(self, text: str) -> None:
+        with self._lock:
+            self.out_file.write(text)
+            self.out_file.flush()
 
     def close(self) -> None:
-        self.out_file.close()
+        with self._lock:
+            self.out_file.close()

@@ -75,6 +75,15 @@ class MFCCConfig:
         self.window = np.hanning(n_fft + 1)[:-1].astype(np.float32)
         self.fb = mel_filterbank(n_fft // 2 + 1, n_mels, sample_rate)
         self.dct = dct_matrix(n_mfcc, n_mels)
+        self._on_device = {}
+
+    def constant(self, name: str, device: torch.device) -> torch.Tensor:
+        """The constant ``name`` (window, fb, dct) on ``device``, copied once:
+        a train step captured in a CUDA graph may copy nothing from the host."""
+        key = (name, str(device))
+        if key not in self._on_device:
+            self._on_device[key] = torch.as_tensor(getattr(self, name), device=device)
+        return self._on_device[key]
 
 
 def mfcc(x: torch.Tensor, cfg: MFCCConfig) -> torch.Tensor:
@@ -83,11 +92,11 @@ def mfcc(x: torch.Tensor, cfg: MFCCConfig) -> torch.Tensor:
     pad = cfg.n_fft // 2
     x = F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0]
     frames = x.unfold(-1, cfg.n_fft, cfg.hop_length)  # [N, frames, n_fft]
-    window = torch.as_tensor(cfg.window, device=x.device)
+    window = cfg.constant("window", x.device)
     spec = torch.abs(torch.fft.rfft(frames * window, dim=-1)) ** 2
     if cfg.normalized:
         spec = spec / float(np.sum(cfg.window**2))
-    mel = spec @ torch.as_tensor(cfg.fb, device=x.device)
+    mel = spec @ cfg.constant("fb", x.device)
     if cfg.log_mels:
         feats = torch.log(mel + 1e-6)
     else:
@@ -95,4 +104,4 @@ def mfcc(x: torch.Tensor, cfg: MFCCConfig) -> torch.Tensor:
         # torchaudio folds the batch into "channels" for MFCC's 3-D input,
         # so the top_db floor is ONE max over the whole batch, not per item.
         feats = torch.maximum(db, db.max() - cfg.top_db)
-    return feats @ torch.as_tensor(cfg.dct, device=x.device)
+    return feats @ cfg.constant("dct", x.device)

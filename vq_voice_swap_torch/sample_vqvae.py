@@ -1,7 +1,8 @@
 """Speaker conversion: encode a clip with the VQ-VAE, decode it as a target
 speaker.
 
-Reads up to --seconds of a .wav, encodes it to VQ codes (or raw encoder
+Reads up to --seconds of an audio file (WAV directly; any other container
+that ffmpeg decodes, through ffmpeg), encodes it to VQ codes (or raw encoder
 output with --no-vq), decodes with --label and the x0 constraint, and
 optionally reports how many codes survive a re-encode (--check-vq).
 --enc-pred-path guides the decoder with an encoder predictor's gradient,
@@ -9,8 +10,8 @@ scaled by --enc-pred-scale. Runs on CUDA unless --device names another
 device.
 
 Example:
-    python -m vq_voice_swap_torch.sample_vqvae --label 3 --sample-steps 10 \
-        --sampler dpmpp --enc-pred-path enc_pred.npz --input-file speech.wav \
+    python -m vq_voice_swap_torch.sample_vqvae --label 3 --sample-steps 10 \\
+        --sampler dpmpp --enc-pred-path enc_pred.npz --input-file speech.wav \\
         model.npz converted.wav
 """
 

@@ -17,17 +17,34 @@ runs the last; every ``--save-interval`` steps the loop writes
 VQ usage counts included), the optimizer state ``opt.pt`` and a
 ``# saved`` line in ``train_log.txt``.
 
-The JAX package's optimizer state (``opt.npz``, msgpack) and its Orbax
-checkpoints are not read: a run directory that holds either and no
-``opt.pt`` is refused rather than resumed with fresh moments. Not ported: tensor parallelism, FSDP, Orbax
-checkpoints, asynchronous saves, several steps per dispatch, activation
-rematerialisation and the profiler flag; the CLIs refuse them.
+``--steps-per-dispatch K`` runs the steps in windows of K whose batches
+are staged first; on CUDA the step is captured once as CUDA graphs and
+replayed K times a window (``train/graphs.py``), on the CPU the window is
+K eager steps. Either way a step's draws come from its own generator
+through the loop's drawer, and the rest of the step (AdamW, the codebook,
+the EMAs) runs as the eager step runs it, so the run computes what the K=1
+run computes. A ``max_steps``
+tail that K does not divide runs one step at a time; a save lands on the
+first window boundary at or after each ``--save-interval`` and is of the
+state at that boundary. ``--grad-checkpoint [full|convs]`` rematerialises
+the UNet ResBlocks in the backward (the diffusion and VQ-VAE loops; the
+classifier and encoder-predictor loops take no remat, as in the JAX
+package). ``--async-save`` snapshots the state (``--async-snapshot host``:
+pinned host memory; ``device``: a copy on the card) and writes the files
+on a worker thread between ``# saving @ N`` and ``# saved``.
+``--profile-dir`` writes a torch.profiler Chrome trace of the loop.
+
+A JAX npz run directory resumes: its optimizer state (``opt.npz``, flax
+msgpack) is read into AdamW (``convert/flax_msgpack.py``). Orbax
+directories are refused. Not ported: tensor parallelism and FSDP; the CLIs
+refuse them.
 """
 
 import argparse
 import json
 import os
 import sys
+import threading
 import time
 from abc import ABC, abstractmethod
 from collections import deque
@@ -39,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from ..classifier_model import ClassifierModel, EncoderPredictorModel
+from ..convert.flax_msgpack import load_optax_adamw
 from ..data import create_data_loader
 from ..diffusion import Diffusion, make_schedule
 from ..diffusion_model import DiffusionModel
@@ -49,8 +67,9 @@ from ..util import resolve_device, step_generator
 from ..vq import VQLossConfig
 from ..vq_vae import VQVAE
 from .ema import EMA
+from .graphs import GraphedTrainStep
 from .state import build_optimizer, prefix_predicate
-from .steps import LossFn, TrainStep, VQUpdateRule
+from .steps import Drawer, LossFn, TrainStep, VQUpdateRule
 
 __all__ = [
     "ClassifierTrainLoop",
@@ -67,18 +86,16 @@ __all__ = [
 NOT_PORTED = {
     "--tensor-parallel": "tensor parallelism",
     "--fsdp": "FSDP",
-    "--async-save": "asynchronous saves",
-    "--async-snapshot": "asynchronous saves",
-    "--steps-per-dispatch": "several steps per dispatch",
-    "--grad-checkpoint": "activation rematerialisation",
-    "--profile-dir": "the profiler flag",
 }
 
 
-# What a JAX run directory holds that this port cannot resume from: the
-# msgpack optimizer state of an npz run, and an Orbax run's model and
-# optimizer (an interrupted Orbax save leaves them as ``<name>.new``).
-JAX_CHECKPOINTS = ("opt.npz", "model.orbax", "opt.orbax")
+# A JAX Orbax run's model and optimizer directories (an interrupted Orbax
+# save leaves them as ``<name>.new``), which this port does not read.
+ORBAX_CHECKPOINTS = ("model.orbax", "opt.orbax")
+
+# Small launches that open a --profile-dir trace on CUDA: torch.profiler
+# loses the device records of a profiling run's first launches (PERF.md §6).
+PROFILE_PAD = 4096
 
 
 class _NotPorted(argparse.Action):
@@ -115,18 +132,21 @@ class TrainLoop(ABC):
     def __init__(self, args: argparse.Namespace):
         self.args = args
         os.makedirs(args.output_dir, exist_ok=True)
-        jax_ckpts = [f for f in JAX_CHECKPOINTS
-                     if os.path.exists(self.path(f)) or os.path.exists(self.path(f + ".new"))]
-        if jax_ckpts and not os.path.exists(self.opt_path()):
+        orbax = [f for f in ORBAX_CHECKPOINTS
+                 if os.path.exists(self.path(f)) or os.path.exists(self.path(f + ".new"))]
+        if orbax and not os.path.exists(self.opt_path()):
             raise RuntimeError(
-                f"{args.output_dir} holds the JAX package's checkpoint ({', '.join(jax_ckpts)}) "
-                "and no opt.pt: this port cannot read its optimizer state, and resuming with "
-                "fresh Adam moments (or starting afresh over its log) would be a different "
-                "run. Warm-start from an npz model with --pretrained-path into a fresh "
-                "--output-dir instead."
+                f"{args.output_dir} holds the JAX package's Orbax checkpoint "
+                f"({', '.join(orbax)}) and no opt.pt: this port reads npz run directories "
+                "only. Convert it with the JAX package (its checkpoint module's "
+                "load_checkpoint_orbax, then save_checkpoint to model.npz and "
+                "model_ema_<rate>.npz, and the optimizer state as opt.npz, as its npz "
+                "runs write them), or warm-start from an npz model with --pretrained-path "
+                "into a fresh --output-dir."
             )
         self.device = resolve_device(args.device)
         self.rng_seed = args.seed
+        self.steps_per_dispatch = max(1, args.steps_per_dispatch or 1)
         self.data_loader, self.num_labels = create_data_loader(
             args.data_dir, args.batch_size, encoding=args.encoding, seed=self.rng_seed)
         self.model, self.resume = self.create_model()
@@ -146,6 +166,10 @@ class TrainLoop(ABC):
             # count on the card would cost two host syncs a parameter a step.
             self.optimizer.load_state_dict(
                 torch.load(self.opt_path(), map_location="cpu", weights_only=True))
+        elif os.path.exists(self.path("opt.npz")):
+            print("loading the JAX package's optimizer state (opt.npz)...")
+            with open(self.path("opt.npz"), "rb") as f:
+                load_optax_adamw(self.optimizer, self.model, f.read())
 
         self.logger = Logger(self.path("train_log.txt"), resume=self.resume)
         self.tracker = LossTracker()
@@ -159,9 +183,17 @@ class TrainLoop(ABC):
         self.train_step = TrainStep(
             self.model, self.build_loss_fn(), self.optimizer, self.emas,
             microbatches=microbatches, micro_remainder=micro_remainder,
-            vq_rule=self.vq_update_rule())
+            vq_rule=self.vq_update_rule(), drawer=self.build_drawer())
+        # Windows of K steps replay the step's forwards and backward from a
+        # CUDA graph on the card; on the CPU they run eagerly.
+        self.graphed_step = None
+        if self.device.type == "cuda" and self.steps_per_dispatch > 1:
+            self.graphed_step = GraphedTrainStep(self.train_step)
         self._pending: deque = deque()
         self._last_finish: Optional[float] = None
+        self._last_done: Optional[torch.cuda.Event] = None
+        self._save_thread: Optional[threading.Thread] = None
+        self._save_error: Optional[Exception] = None
         self.write_run_info()
 
     # ----------------------------------------------------------- main loop
@@ -169,15 +201,20 @@ class TrainLoop(ABC):
     def loop(self, max_steps: Optional[int] = None) -> None:
         if max_steps is None:
             max_steps = self.args.max_steps
-        try:
-            for i, batch in enumerate(repeat_dataset(self.data_loader)):
-                if max_steps is not None and i >= max_steps:
-                    break
-                self.total_steps = i + self.logger.start_step
-                self.loop_steps = i
-                self.step(batch)
-        finally:
-            self._flush_pending()
+        with self._profiling():
+            try:
+                if self.steps_per_dispatch > 1:
+                    self._loop_windows(max_steps, self.steps_per_dispatch)
+                else:
+                    for i, batch in enumerate(repeat_dataset(self.data_loader)):
+                        if max_steps is not None and i >= max_steps:
+                            break
+                        self.total_steps = i + self.logger.start_step
+                        self.loop_steps = i
+                        self.step(batch)
+            finally:
+                self._flush_pending()
+                self.finish_pending_save()
 
     def step(self, batch: Dict[str, np.ndarray]) -> None:
         """Run one train step; fetch the metrics of the step
@@ -186,12 +223,69 @@ class TrainLoop(ABC):
         device_batch = self.to_device(self.prepare_batch(batch))
         dispatched = time.perf_counter()
         metrics = self.train_step(device_batch, generator)
-        self._pending.append((self.loop_steps, metrics, dispatched))
-        while len(self._pending) > max(1, self.args.pipeline_depth):
-            self._flush_one()
+        self._queue(self.loop_steps, [metrics], dispatched)
         if (self.total_steps + 1) % self.args.save_interval == 0:
             self._flush_pending()  # the '# saved' line follows this step's line
-            self.save()
+            self.save(self.loop_steps + 1)
+
+    def _loop_windows(self, max_steps: Optional[int], k_steps: int) -> None:
+        """--steps-per-dispatch: windows of K steps whose batches are
+        prepared (``prepare_batch`` sees each step's ``total_steps``) and
+        staged on the device first; a tail shorter than K runs through
+        ``step``."""
+        it = iter(repeat_dataset(self.data_loader))
+        i = 0
+        while max_steps is None or i < max_steps:
+            if max_steps is not None and max_steps - i < k_steps:
+                self.total_steps = i + self.logger.start_step
+                self.loop_steps = i
+                self.step(next(it))
+                i += 1
+                continue
+            batches = []
+            for k in range(k_steps):
+                self.total_steps = i + k + self.logger.start_step
+                batches.append(self.prepare_batch(next(it)))
+            self.loop_steps = i
+            self._window(batches, i)
+            i += k_steps
+
+    def _window(self, batches: List[Dict[str, np.ndarray]], base: int) -> None:
+        """Run one window's steps (loop steps base .. base+K-1); save when
+        the window crosses a --save-interval boundary, of the state after
+        its last step."""
+        k_steps = len(batches)
+        start = self.logger.start_step
+        staged = self.to_device({k: np.stack([b[k] for b in batches]) for k in batches[0]})
+        run = self.graphed_step or self.train_step
+        dispatched = time.perf_counter()
+        metrics = []
+        for j in range(k_steps):
+            generator = step_generator(self.rng_seed, base + j + start, self.device)
+            batch = {k: v[j] for k, v in staged.items()}
+            if self.graphed_step is None:
+                # The eager window: the same draws, through the drawer.
+                metrics.append(run(batch, generator, draws=run.draw(batch, generator)))
+            else:
+                metrics.append(run(batch, generator))
+        done = None
+        if self.graphed_step is not None:
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+        self._queue(base, metrics, dispatched, done)
+        last = base + start + k_steps  # steps done after the window
+        if last // self.args.save_interval != (last - k_steps) // self.args.save_interval:
+            self._flush_pending()
+            self.save(base + k_steps)
+
+    def _queue(self, loop_steps: int, metrics: List[Dict[str, Any]], dispatched: float,
+               done: Optional[torch.cuda.Event] = None) -> None:
+        """Hold a dispatch's metrics (one step or a window; ``done`` marks
+        a replayed window's end on the card) and fetch the oldest beyond
+        --pipeline-depth."""
+        self._pending.append((loop_steps, metrics, dispatched, done))
+        while len(self._pending) > max(1, self.args.pipeline_depth):
+            self._flush_one()
 
     def prepare_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Hook to change the host batch (label offsets, curriculum scalars)."""
@@ -208,24 +302,65 @@ class TrainLoop(ABC):
         return out
 
     def _flush_one(self) -> None:
-        """Fetch and log the metrics of the oldest step (waits for it)."""
-        loop_steps, metrics, dispatched = self._pending.popleft()
-        loss = float(metrics["loss"])
+        """Fetch and log the metrics of the oldest dispatch (waits for it):
+        one line a step, each with the dispatch's samples/s. That is timed
+        between completions on the host (the first dispatch's from its
+        dispatch); a replayed window after another, between their ends on
+        the card, since a replay can hold the host to the card's pace and
+        the host then sees a completion only when the next window is
+        queued."""
+        loop_steps, window, dispatched, done = self._pending.popleft()
+        losses = [float(m["loss"]) for m in window]
         now = time.perf_counter()
-        # Between completions; the first step's from its dispatch.
-        baseline = self._last_finish or dispatched
+        if done is not None and self._last_done is not None:
+            done.synchronize()
+            seconds = self._last_done.elapsed_time(done) / 1e3
+        else:
+            seconds = now - (self._last_finish or dispatched)
         self._last_finish = now
-        self.tracker.add(metrics["ts"].cpu().numpy(), metrics["mses"].float().cpu().numpy())
-        other = {k: float(v) for k, v in metrics["extra"].items()}
-        if "codebook_used" in metrics:
-            other["codebook_used"] = float(metrics["codebook_used"])
-        other["samples_per_sec"] = self.args.batch_size / (now - baseline)
-        other.update(self.tracker.log_dict())
-        self.logger.log(loop_steps + 1, loss=loss, **other)
+        self._last_done = done
+        rate = self.args.batch_size * len(window) / seconds
+        for j, (metrics, loss) in enumerate(zip(window, losses)):
+            self.tracker.add(metrics["ts"].cpu().numpy(),
+                             metrics["mses"].float().cpu().numpy())
+            other = {k: float(v) for k, v in metrics["extra"].items()}
+            if "codebook_used" in metrics:
+                other["codebook_used"] = float(metrics["codebook_used"])
+            other["samples_per_sec"] = rate
+            other.update(self.tracker.log_dict())
+            self.logger.log(loop_steps + j + 1, loss=loss, **other)
 
     def _flush_pending(self) -> None:
         while self._pending:
             self._flush_one()
+
+    @contextmanager
+    def _profiling(self) -> Iterator[None]:
+        """--profile-dir: a torch.profiler trace of the loop, written as a
+        Chrome trace (``trace_<time>.json``) when the loop ends."""
+        profile_dir = self.args.profile_dir
+        if not profile_dir:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        prof = profile(activities=activities)
+        prof.start()
+        try:
+            if cuda:
+                pad = torch.zeros(1, device=self.device)
+                for _ in range(PROFILE_PAD):
+                    pad.add_(1.0)
+                torch.cuda.synchronize(self.device)
+            yield
+        finally:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            path = os.path.join(profile_dir, f"trace_{int(time.time() * 1000)}.json")
+            prof.export_chrome_trace(path)
+            print(f"wrote a profiler trace to {path}")
 
     # ------------------------------------------------------------- plumbing
 
@@ -280,18 +415,77 @@ class TrainLoop(ABC):
             emas.append(ema)
         return emas
 
-    def save(self) -> None:
-        self.model.save(self.checkpoint_path())
-        with torch.no_grad():
-            for ema in self.emas:
-                # An EMA file carries the model's current buffers (usage counts).
-                for dst, src in zip(ema.model.buffers(), self.model.buffers()):
-                    dst.copy_(src)
-                ema.model.save(self.ema_path(ema.rate))
+    def save(self, steps_done: int) -> None:
+        """Write the model, its EMAs and the optimizer state, then
+        ``# saved``. With --async-save, snapshot them, mark ``# saving @
+        steps_done`` and write from a worker thread (one save in flight; a
+        failed one raises at the next save or at the loop's end)."""
+        if not self.args.async_save:
+            self._write_checkpoints(self._state(lambda t: t))
+            return
+        if self.args.async_snapshot == "device":
+            snapshot = self._state(lambda t: t.detach().clone())
+        else:
+            snapshot = self._state(self._pinned_copy)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        self.finish_pending_save()
+        self.logger.mark_saving(steps_done)
+
+        def worker():
+            try:
+                if done is not None:
+                    done.synchronize()  # the snapshot's copies have landed
+                self._write_checkpoints(snapshot)
+            except Exception as e:  # raised at the next join
+                self._save_error = e
+
+        self._save_error = None
+        self._save_thread = threading.Thread(target=worker, daemon=False)
+        self._save_thread.start()
+
+    def _pinned_copy(self, t: torch.Tensor) -> torch.Tensor:
+        if t.device.type != "cuda":
+            return t.detach().clone()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t.detach(), non_blocking=True)
+        return out
+
+    def _state(self, take: Callable[[torch.Tensor], torch.Tensor]) -> Dict[str, Any]:
+        """The state a save writes, each tensor through ``take``: the
+        model's state_dict, each EMA's parameters with the model's buffers
+        (usage counts), and the optimizer's state_dict."""
+        model = {k: take(v) for k, v in self.model.state_dict().items()}
+        buffers = {n for n, _ in self.model.named_buffers()}
+        emas = []
+        for ema in self.emas:
+            state = {n: take(p) for n, p in ema.model.named_parameters()}
+            state.update((n, model[n]) for n in buffers)
+            emas.append(state)
+        opt = self.optimizer.state_dict()
+        opt["adamw"]["state"] = {i: {k: take(v) for k, v in st.items()}
+                                 for i, st in opt["adamw"]["state"].items()}
+        return {"model": model, "emas": emas, "opt": opt}
+
+    def _write_checkpoints(self, state: Dict[str, Any]) -> None:
+        self.model.save(self.checkpoint_path(), state["model"])
+        for ema, ema_state in zip(self.emas, state["emas"]):
+            ema.model.save(self.ema_path(ema.rate), ema_state)
         tmp = self.opt_path() + ".tmp"
-        torch.save(self.optimizer.state_dict(), tmp)
+        torch.save(state["opt"], tmp)
         os.replace(tmp, self.opt_path())
         self.logger.mark_save()
+
+    def finish_pending_save(self) -> None:
+        """Wait for an asynchronous save; raise if it failed."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
+            err, self._save_error = self._save_error, None
+            if err is not None:
+                raise RuntimeError("asynchronous checkpoint save failed") from err
 
     def write_run_info(self) -> None:
         info = dict(args=vars(self.args), command=sys.argv[0], start_steps=self.total_steps,
@@ -322,6 +516,10 @@ class TrainLoop(ABC):
     def build_loss_fn(self) -> LossFn:
         """The train step's loss_fn(batch, generator, draws)."""
 
+    @abstractmethod
+    def build_drawer(self) -> Drawer:
+        """The train step's drawer(batch, generator): loss_fn's draws."""
+
     @classmethod
     @abstractmethod
     def default_output_dir(cls) -> str:
@@ -343,12 +541,34 @@ class TrainLoop(ABC):
         parser.add_argument("--output-dir", default=cls.default_output_dir(), type=str)
         parser.add_argument("--pretrained-path", default=None, type=str)
         parser.add_argument("--save-interval", default=1000, type=int)
+        parser.add_argument(
+            "--grad-checkpoint", nargs="?", const="full", default=False,
+            choices=["full", "convs"],
+            help="rematerialize ResBlocks in the backward: 'full' (bare flag; least "
+                 "memory, recomputes the convolutions) or 'convs' (saves conv_in's "
+                 "output, recomputes only the norm/GELU/FiLM chains). The bare flag "
+                 "takes a following positional argument: place it after the data dir "
+                 "or write --grad-checkpoint=full")
         parser.add_argument("--encoding", default="linear", type=str)
         parser.add_argument("--seed", default=0, type=int)
         parser.add_argument("--bf16", action="store_true",
                             help="compute in bfloat16 (params stay float32)")
+        parser.add_argument("--profile-dir", default=None, type=str,
+                            help="write a torch.profiler Chrome trace of the loop here")
         parser.add_argument("--pipeline-depth", default=1, type=int,
                             help="how many steps metric fetches may lag behind")
+        parser.add_argument("--steps-per-dispatch", default=1, type=int,
+                            help="run the steps in windows of K staged batches; on CUDA "
+                                 "the step is one CUDA graph replayed K times a window "
+                                 "(saves land on window boundaries)")
+        parser.add_argument("--async-save", action="store_true",
+                            help="write checkpoints from a worker thread, overlapping "
+                                 "the writes with training")
+        parser.add_argument("--async-snapshot", default="host", type=str,
+                            choices=("host", "device"),
+                            help="where --async-save snapshots the state: host (pinned "
+                                 "memory; the loop waits for the copies) or device (a "
+                                 "copy on the card until the worker has written it)")
         parser.add_argument("--max-steps", default=None, type=int,
                             help="stop after this many steps (default: run until killed)")
         parser.add_argument("--checkpoint-format", default="npz", choices=("npz",),
@@ -375,7 +595,14 @@ class DiffusionTrainLoop(TrainLoop):
             dropout=self.args.dropout,
             num_labels=self.num_labels if self.args.class_cond else None,
             dtype=self.model_dtype(),
+            remat=self.args.grad_checkpoint,
         )
+
+    def create_model(self):
+        model, resume = super().create_model()
+        # A training setting: a resumed run takes this run's flag.
+        model.set_remat(self.args.grad_checkpoint)
+        return model, resume
 
     def build_loss_fn(self):
         model = self.model
@@ -389,6 +616,14 @@ class DiffusionTrainLoop(TrainLoop):
             return losses.mean(), {"mses": losses.detach(), "ts": ts, "extra": {}}
 
         return loss_fn
+
+    def build_drawer(self):
+        model = self.model
+
+        def drawer(batch, generator):
+            return model.loss_draws(batch["samples"][..., None], generator, train=True)
+
+        return drawer
 
     @classmethod
     def arg_parser(cls):
@@ -423,6 +658,7 @@ class VQVAETrainLoop(DiffusionTrainLoop):
             dropout=self.args.dropout,
             num_labels=self.num_labels if self.args.class_cond else None,
             dtype=self.model_dtype(),
+            remat=self.args.grad_checkpoint,
         )
 
     def create_model(self):
@@ -482,6 +718,16 @@ class VQVAETrainLoop(DiffusionTrainLoop):
             }
 
         return loss_fn
+
+    def build_drawer(self):
+        model = self.model
+        jitter = self.args.jitter
+
+        def drawer(batch, generator):
+            return model.loss_draws(batch["samples"][..., None], generator, train=True,
+                                    jitter=jitter)
+
+        return drawer
 
     def frozen_predicate(self):
         prefixes = []
@@ -609,6 +855,20 @@ class VQVAEUncondTrainLoop(VQVAETrainLoop):
 
         return loss_fn
 
+    def build_drawer(self):
+        model = self.model
+        jitter = self.args.jitter
+        no_vq_prob = self.args.no_vq_prob
+
+        def drawer(batch, generator):
+            label = batch["label"]
+            nums = torch.rand(label.shape, generator=generator, device=label.device)
+            return {"no_class_nums": nums, **model.loss_draws(
+                batch["samples"][..., None], generator, train=True, jitter=jitter,
+                no_vq_prob=no_vq_prob)}
+
+        return drawer
+
     @classmethod
     def arg_parser(cls):
         parser = super().arg_parser()
@@ -636,6 +896,14 @@ def noised_at(diffusion: Diffusion, x: torch.Tensor, power: torch.Tensor,
     return ts, diffusion.sample_q(x, ts, epsilon=noise.to(x.device))
 
 
+def noised_draws(x: torch.Tensor, generator: Optional[torch.Generator]) -> Dict[str, Any]:
+    """``noised_at``'s draws, in its order: ``t_nums``, then ``noise``."""
+    return {
+        "t_nums": torch.rand((x.shape[0],), generator=generator, device=x.device),
+        "noise": torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device),
+    }
+
+
 class _CurriculumMixin:
     """A timestep curriculum: ts = u ** power, the power annealed linearly
     from --curriculum-start to 1 over --curriculum-steps."""
@@ -648,6 +916,12 @@ class _CurriculumMixin:
 
     def prepare_batch(self, batch):
         return {**batch, "ts_power": np.asarray(self.curriculum_power(), np.float32)}
+
+    def build_drawer(self):
+        def drawer(batch, generator):
+            return noised_draws(batch["samples"][..., None], generator)
+
+        return drawer
 
     @classmethod
     def arg_parser(cls):

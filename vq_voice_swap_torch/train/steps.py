@@ -10,6 +10,16 @@ outputs concatenated. After the update the codebook's usage counts decay
 by the number of forwards (used codes go to dead_rate), ``codebook_used``
 counts the live codes, and dead codes are revived from the step's encoder
 outputs when the rule says so; then the EMAs follow the new parameters.
+
+The step's random draws can leave it: ``draw`` returns, for each forward,
+every tensor the loss would draw from the step's generator, in the order
+the loss draws them (a ``Drawer`` of the loop's). A step given those draws
+computes what it would have drawn itself. The step is four parts:
+``forward_backward`` (the forwards and the accumulated gradients, which
+``train/graphs.py`` captures in a CUDA graph), the optimizer update,
+``codebook`` (the usage update, and the revival's probabilities) and
+``finish`` (the revival from picks drawn from those probabilities, then
+the EMAs).
 """
 
 from dataclasses import dataclass
@@ -18,11 +28,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..vq import revive_dead_codes, update_usage
+from ..vq import draw_revival_picks, revival_probs, revive_dead_codes, update_usage
 from .ema import EMA
 from .state import Optimizer
 
-__all__ = ["LossFn", "TrainStep", "VQUpdateRule"]
+__all__ = ["Drawer", "LossFn", "Revival", "TrainStep", "VQUpdateRule"]
 
 # loss_fn(batch, generator, draws) -> (scalar loss, aux): aux holds "mses"
 # and "ts" (per row), "extra" ({name: scalar}) and, for a VQ model, "idxs",
@@ -30,6 +40,22 @@ __all__ = ["LossFn", "TrainStep", "VQUpdateRule"]
 # losses that replace its random draws (empty in training).
 LossFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator], Dict[str, Any]],
                   Tuple[torch.Tensor, Dict[str, Any]]]
+
+# drawer(sub_batch, generator) -> the draws of one forward of loss_fn on
+# sub_batch: the keyword arguments that replace its random draws, drawn
+# from generator in the order loss_fn would draw them.
+Drawer = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator]], Dict[str, Any]]
+
+
+@dataclass
+class Revival:
+    """What the revival of dead codes needs from ``TrainStep.codebook``:
+    the decayed usage counts, the step's encoder rows and their k-means++
+    probabilities."""
+
+    usage: torch.Tensor
+    enc_flat: torch.Tensor
+    probs: torch.Tensor
 
 
 @dataclass(frozen=True)
@@ -46,7 +72,7 @@ class TrainStep:
     ``microbatches`` is the number of full chunks and ``micro_remainder``
     the size of a trailing partial one (0: none). Metrics stay on the
     device: "loss", "mses", "ts", "extra" and, with a ``vq_rule``,
-    "codebook_used"."""
+    "codebook_used". ``drawer`` gives ``draw``."""
 
     def __init__(
         self,
@@ -57,6 +83,7 @@ class TrainStep:
         microbatches: int = 1,
         micro_remainder: int = 0,
         vq_rule: Optional[VQUpdateRule] = None,
+        drawer: Optional[Drawer] = None,
     ):
         self.model = model
         self.loss_fn = loss_fn
@@ -65,6 +92,7 @@ class TrainStep:
         self.microbatches = microbatches
         self.micro_remainder = micro_remainder
         self.vq_rule = vq_rule
+        self.drawer = drawer
 
     @property
     def n_forwards(self) -> int:
@@ -87,6 +115,12 @@ class TrainStep:
         return [((hi - lo) / size, {k: v[lo:hi] if v.ndim else v for k, v in batch.items()})
                 for lo, hi in bounds]
 
+    def draw(self, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator]) -> List[Dict[str, Any]]:
+        """The draws of each forward of the step, drawn from ``generator``
+        as the step itself would draw them."""
+        return [self.drawer(mb, generator) for _, mb in self.chunks(batch)]
+
     def __call__(
         self,
         batch: Dict[str, torch.Tensor],
@@ -96,6 +130,22 @@ class TrainStep:
     ) -> Dict[str, Any]:
         """``draws`` (one dict per forward) and ``revive_picks`` replace
         the step's random draws from ``generator``."""
+        metrics, auxes = self.forward_backward(batch, generator, draws)
+        self.optimizer.step()
+        revival = self.codebook(metrics, auxes)
+        if revival is not None and revive_picks is None:
+            revive_picks = draw_revival_picks(revival.probs, revival.usage.shape[0], generator)
+        self.finish(revival, revive_picks)
+        return metrics
+
+    def forward_backward(
+        self,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator],
+        draws: Optional[Sequence[Dict[str, Any]]] = None,
+    ) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
+        """The forwards and their weighted gradients (written to ``.grad``):
+        (metrics, each forward's aux)."""
         self.optimizer.zero_grad()
         loss = 0.0
         extra: Dict[str, torch.Tensor] = {}
@@ -107,28 +157,46 @@ class TrainStep:
             for k, v in aux["extra"].items():
                 extra[k] = extra.get(k, 0.0) + v.detach() * weight
             auxes.append(aux)
-        self.optimizer.step()
+        metrics = {"loss": loss, "mses": _cat(auxes, "mses"), "ts": _cat(auxes, "ts"),
+                   "extra": extra}
+        return metrics, auxes
 
-        def cat(key):
-            return torch.cat([a[key] for a in auxes])
+    def codebook(self, metrics: Dict[str, Any],
+                 auxes: List[Dict[str, Any]]) -> Optional[Revival]:
+        """After the update: the usage counts' update, and ``metrics``'
+        "codebook_used". The counts are written to the codebook, or, when
+        the rule revives, returned with the revival's probabilities."""
+        if self.vq_rule is None:
+            return None
+        with torch.no_grad():
+            vq = self.model.vq
+            used = auxes[0]["used"]
+            for a in auxes[1:]:
+                used = used | a["used"]
+            usage = update_usage(vq.usage_count, _cat(auxes, "idxs"), self.vq_rule.dead_rate,
+                                 decay=self.n_forwards, used=used)
+            # Liveness before revival refills the dead codes.
+            metrics["codebook_used"] = (usage > 0).sum()
+            if not self.vq_rule.revive:
+                vq.usage_count.copy_(usage)
+                return None
+            enc_flat = _cat(auxes, "enc_flat")
+            return Revival(usage, enc_flat, revival_probs(vq.dictionary, enc_flat))
 
-        metrics = {"loss": loss, "mses": cat("mses"), "ts": cat("ts"), "extra": extra}
-        if self.vq_rule is not None:
+    def finish(self, revival: Optional[Revival], picks: Optional[torch.Tensor]) -> None:
+        """Revive the dead codes from ``picks`` (row indices of the
+        revival's encoder rows, one a code), then update the EMAs."""
+        if revival is not None:
             with torch.no_grad():
                 vq = self.model.vq
-                used = auxes[0]["used"]
-                for a in auxes[1:]:
-                    used = used | a["used"]
-                usage = update_usage(vq.usage_count, cat("idxs"), self.vq_rule.dead_rate,
-                                     decay=self.n_forwards, used=used)
-                # Liveness before revival refills the dead codes.
-                metrics["codebook_used"] = (usage > 0).sum()
-                if self.vq_rule.revive:
-                    dictionary, usage = revive_dead_codes(
-                        vq.dictionary, usage, cat("enc_flat"), self.vq_rule.dead_rate,
-                        generator, revive_picks)
-                    vq.dictionary.copy_(dictionary)
+                dictionary, usage = revive_dead_codes(
+                    vq.dictionary, revival.usage, revival.enc_flat, self.vq_rule.dead_rate,
+                    picks=picks)
+                vq.dictionary.copy_(dictionary)
                 vq.usage_count.copy_(usage)
         for ema in self.emas:
             ema.update(self.model)
-        return metrics
+
+
+def _cat(auxes: List[Dict[str, Any]], key: str) -> torch.Tensor:
+    return torch.cat([a[key] for a in auxes])

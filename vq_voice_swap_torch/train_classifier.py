@@ -1,6 +1,7 @@
 """Train the noised-audio speaker classifier of classifier guidance
 (counterpart of the JAX package's ``train_classifier.py``; see
-``train/loops.py`` for the run directory and what is not ported). Clips
+``train/loops.py`` for the run directory and the flags; --grad-checkpoint
+is taken and, as in the JAX package, not applied to the classifier). Clips
 are diffused to timesteps u ** power, the power annealed from
 --curriculum-start to 1 over --curriculum-steps. --pretrained-path
 warm-starts the stem from a diffusion model's UNet down path. Runs on

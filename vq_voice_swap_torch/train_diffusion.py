@@ -1,7 +1,7 @@
 """Train an unconditional or class-conditional diffusion model on
 waveforms on one device (counterpart of the JAX package's
 ``train_diffusion.py``; see ``train/loops.py`` for the run directory and
-what is not ported). Runs on CUDA unless --device names another device.
+the flags). Runs on CUDA unless --device names another device.
 
 Examples:
     python -m vq_voice_swap_torch.train_diffusion tones

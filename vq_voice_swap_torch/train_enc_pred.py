@@ -2,7 +2,8 @@
 clip from the clip diffused to a curriculum timestep, and its gradient
 guides ``sample_vqvae --enc-pred-path`` (counterpart of the JAX package's
 ``train_enc_pred.py``; see ``train/loops.py`` for the run directory and
-what is not ported). Runs on CUDA unless --device names another device.
+the flags; --grad-checkpoint is taken and, as in the JAX package, not
+applied to the encoder predictor). Runs on CUDA unless --device names another device.
 
 Examples:
     python -m vq_voice_swap_torch.train_enc_pred \\

@@ -1,7 +1,7 @@
 """Grow a trained VQ-VAE's label space with new speakers and train only
 their label embeddings, everything else frozen (counterpart of the JAX
 package's ``train_vqvae_add.py``; see ``train/loops.py`` for the run
-directory and what is not ported). The dataset's labels follow the
+directory and the flags). The dataset's labels follow the
 pretrained model's; the new rows start standard normal. Runs on CUDA
 unless --device names another device.
 

@@ -1,6 +1,6 @@
 """Fine-tune a trained VQ-VAE for classifier-free guidance (counterpart of
 the JAX package's ``train_vqvae_uncond.py``; see ``train/loops.py`` for the
-run directory and what is not ported): labels move up by one, and each
+run directory and the flags): labels move up by one, and each
 row's label drops to the new unconditional label 0 with probability
 --no-class-prob and its codes to zero with probability --no-vq-prob.
 Sample with ``sample_vqvae_uncond`` afterwards. Runs on CUDA unless

@@ -16,6 +16,7 @@ __all__ = [
     "Codebook",
     "VQLossConfig",
     "embedding_distances",
+    "draw_revival_picks",
     "init_vq_params",
     "revival_probs",
     "revive_dead_codes",
@@ -79,6 +80,12 @@ def revival_probs(dictionary: torch.Tensor, batch_vecs: torch.Tensor) -> torch.T
     return torch.where(probs.sum() > 0, probs, torch.ones_like(probs))
 
 
+def draw_revival_picks(probs: torch.Tensor, num_codes: int,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One categorical draw of a row index per code, from ``revival_probs``."""
+    return torch.multinomial(probs, num_codes, replacement=True, generator=generator)
+
+
 def revive_dead_codes(
     dictionary: torch.Tensor,
     usage: torch.Tensor,
@@ -92,8 +99,8 @@ def revive_dead_codes(
     from ``revival_probs``. ``picks`` ([D] row indices) replaces the draw
     from ``generator``. Returns (new_dictionary, new_usage)."""
     if picks is None:
-        picks = torch.multinomial(revival_probs(dictionary, batch_vecs), dictionary.shape[0],
-                                  replacement=True, generator=generator)
+        picks = draw_revival_picks(revival_probs(dictionary, batch_vecs), dictionary.shape[0],
+                                   generator)
     dead = usage == 0
     replacements = batch_vecs[picks].to(dictionary.dtype)
     new_dict = torch.where(dead[:, None], replacements, dictionary)

@@ -57,6 +57,7 @@ class VQVAE(DiffusionModel):
             base_channels=base_channels,
             cond_mult=cond_mult,
             dtype=self.compute_dtype,
+            remat=self.remat,
         )
         self.vq = Codebook(dictionary_size, self.cond_channels, dead_rate)
 
@@ -141,6 +142,28 @@ class VQVAE(DiffusionModel):
             "used": vq_out["used"],
             "enc_flat": enc_out.detach().reshape(-1, enc_out.shape[-1]),
         }
+
+    def loss_draws(self, inputs: torch.Tensor, generator: Optional[torch.Generator],
+                   train: bool = False, jitter: float = 0.0,
+                   no_vq_prob: float = 0.0) -> Dict[str, Any]:
+        """Every random draw of ``losses(inputs, ...)`` with these settings,
+        in the order and shapes it draws them: ``jitter_nums``, ``ts``,
+        ``epsilon``, ``no_vq_nums``, then the dropout masks."""
+        n, t = inputs.shape[:2]
+        dev = inputs.device
+        draws: Dict[str, Any] = {}
+        if jitter:
+            t1 = t // self.encoder.downsample_rate
+            draws["jitter_nums"] = torch.rand((n, t1, 1), generator=generator, device=dev)
+        draws["ts"] = torch.rand((n,), generator=generator, device=dev)
+        draws["epsilon"] = torch.randn(inputs.shape, generator=generator, dtype=inputs.dtype,
+                                       device=dev)
+        if no_vq_prob:
+            draws["no_vq_nums"] = torch.rand((n, 1, 1), generator=generator, device=dev)
+        masks = self.dropout_draws(n, t, generator, dev, train)
+        if masks is not None:
+            draws["dropout_masks"] = masks
+        return draws
 
     def encode(self, inputs: torch.Tensor) -> torch.Tensor:
         """Waveform [N, T, 1] -> integer codes [N, T1]."""
