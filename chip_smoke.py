@@ -171,6 +171,7 @@ result.
 
 import contextlib
 import copy
+import gc
 import io
 import json
 import os
@@ -2366,10 +2367,359 @@ def data_eval_paths(dev, workdir: str, smi: str, flagship: str, uncond_ckpt: str
     return runs
 
 
+# ------------------------------------------------------------------ phase 7
+
+# Data parallelism and FSDP: the bf16 flagship of phase 5, every rank a
+# process of its own started by torchrun (python -m torch.distributed.run),
+# each running this script's rank_main: a run without the launcher, then
+# one process under torchrun that runs DP, FSDP and DP at K=4 one after the
+# other (the group stays up between them), then two ranks sharing the card
+# over gloo, DP and then FSDP (saved as dcp). Eight steps give the K=4 run a
+# steady second window.
+PARALLEL_STEPS = TRAIN_STEPS
+# The world-size-1 runs whose host time a step is profiled (one more step,
+# after the run's own) and set beside the plain run's.
+PROFILED = ("plain", "dp", "fsdp")
+PARALLEL_TIMEOUT = 420
+RANK_RUN = "--rank-run"
+
+
+def _launch(workdir: str, name: str, nproc: int, args) -> str:
+    """Run this script with ``args`` in a new process session, under
+    torchrun with ``nproc`` ranks (0: without the launcher), and return
+    what it printed; raise if it fails or outlasts PARALLEL_TIMEOUT (its
+    processes are killed either way)."""
+    cmd = [sys.executable]
+    if nproc:
+        cmd += ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(nproc)]
+    cmd += [os.path.abspath(__file__), *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, cwd=workdir)
+    try:
+        printed, _ = proc.communicate(timeout=PARALLEL_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    if proc.returncode != 0:
+        print(printed[-6000:])
+        raise RuntimeError(f"{name}: {' '.join(cmd)} exited with {proc.returncode}")
+    return printed
+
+
+def check_gloo_collectives() -> None:
+    """Assert that gloo carries the DP path's collectives between this
+    process and the group's others on the card (NCCL refuses two ranks
+    on one device): all_reduce (sum; max on uint8), all_gather and
+    broadcast of CUDA tensors, each result checked."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda:0")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((1000,), rank + 1.0, device=dev)
+    dist.all_reduce(x)
+    used = torch.tensor([rank, 1 - rank, 0], dtype=torch.uint8, device=dev)
+    dist.all_reduce(used, op=dist.ReduceOp.MAX)
+    parts = [torch.empty(2, device=dev) for _ in range(world)]
+    dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
+    b = torch.full((2,), float(rank), device=dev)
+    dist.broadcast(b, 0)
+    assert x.sum().item() == 1000 * world * (world + 1) / 2, x[:3]
+    assert used.tolist() == [1, 1, 0], used
+    assert [p.tolist() for p in parts] == [[float(r)] * 2 for r in range(world)], parts
+    assert b.tolist() == [0.0, 0.0], b
+    print(f"gloo rank {rank}: carries all_reduce, all_gather and broadcast on cuda:0")
+
+
+def host_profile(loop) -> dict:
+    """One more train step of ``loop`` (eager; nothing logged or saved)
+    under torch.profiler: its wall ms, its host launch calls (kernels,
+    copies, memsets) and {operator: [calls, self host ms]}. The step is
+    the second of two profiled sessions: a process's first session pays
+    the tracer's start-up, which can double a step's host time, so only
+    second sessions compare across processes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = loop.to_device(loop.prepare_batch(next(iter(loop.data_loader))))
+    for session in range(2):
+        generator = step_generator(0, 10**6 + session, loop.device)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loop.train_step(batch, generator)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    launches = sum(e.device_type() != cuda and any(k in e.name() for k in _LAUNCH_CALLS)
+                   for e in prof.profiler.kineto_results.events())
+    ops = {e.key: [e.count, e.self_cpu_time_total / 1e3] for e in prof.key_averages()
+           if e.self_cpu_time_total > 0}
+    return dict(wall_ms=wall_ms, launches=launches, ops=ops)
+
+
+def _state_bytes(loop) -> dict:
+    """This rank's bytes of parameters, EMA shadows and AdamW moments."""
+    from vq_voice_swap_torch.parallel import local_tensor
+
+    def size(ts):
+        return sum(local_tensor(t).numel() * t.element_size() for t in ts)
+
+    moments = [v for st in loop.optimizer.adamw.state.values() for v in st.values() if v.ndim]
+    return {"params": size(loop.model.parameters()),
+            "emas": sum(size(e.model.parameters()) for e in loop.emas), "adamw": size(moments)}
+
+
+def rank_main(spec: str) -> int:
+    """One rank of phase 7's runs, ``spec`` a JSON {"root", "steps",
+    "gloo", "runs": [{"name", "k", "argv"}]}: each run is the
+    flagship's loop for ``steps`` steps with deterministic algorithms, the
+    launch counts set to 0 just before it; each writes rank<r>.json into
+    its directory (root/name): the logged values, launches, seconds, peak
+    device memory, state bytes and the codebook's digest, and for a run
+    with "profile" one more step's ``host_profile``. With ``gloo``
+    the group starts over gloo (the ranks share cuda:0) and its
+    collectives are checked first."""
+    import hashlib
+
+    from vq_voice_swap_torch.parallel import full_tensor, init_distributed, rank
+
+    spec = json.loads(spec)
+    steps = spec["steps"]
+    if spec["gloo"]:
+        init_distributed("cuda:0", "gloo")
+        check_gloo_collectives()
+    for run in spec["runs"]:
+        out = os.path.join(spec["root"], run["name"].replace(" ", "_"))
+        argv = run["argv"] + ["--max-steps", str(steps), "--save-interval", str(steps),
+                              "--output-dir", out]
+        if run["k"] > 1:
+            argv += ["--steps-per-dispatch", str(run["k"])]
+        with deterministic(True), recorded_log([]) as raw:
+            loop = VQVAETrainLoop(VQVAETrainLoop.arg_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            loop.loop()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        vq = loop.model.vq
+        digest = hashlib.sha256()
+        for t in (full_tensor(vq.dictionary), vq.usage_count):
+            digest.update(t.detach().cpu().numpy().tobytes())
+        result = dict(counts=read_counts(), raw=raw, seconds=seconds,
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                      state=_state_bytes(loop), codebook=digest.hexdigest(),
+                      world=loop.world, device=str(loop.device),
+                      route="cuda_graph" if loop.graphed_step else "eager")
+        if run["profile"]:
+            result["profile"] = host_profile(loop)
+        with open(os.path.join(out, f"rank{rank()}.json"), "w") as f:
+            json.dump(result, f)
+        loop.logger.close()
+        del loop
+        gc.collect()
+    return 0
+
+
+def parallel_runs(workdir: str, nproc: int, runs, gloo: bool = False):
+    """Phase-7 runs of PARALLEL_STEPS steps in one launch of ``nproc``
+    ranks (0: without the launcher): {name: (its directory, each rank's
+    result)}."""
+    spec = dict(root=workdir, steps=PARALLEL_STEPS, gloo=gloo,
+                runs=[dict(name=n, k=k, argv=a, profile=n in PROFILED) for n, k, a in runs])
+    t0 = time.perf_counter()
+    printed = _launch(workdir, ", ".join(n for n, _, _ in runs), nproc,
+                      [RANK_RUN, json.dumps(spec)])
+    wall = time.perf_counter() - t0
+    if gloo:
+        assert printed.count(" carries ") == nproc, printed[-3000:]
+    out = {}
+    for name, _, _ in runs:
+        d = os.path.join(workdir, name.replace(" ", "_"))
+        ranks = []
+        for r in range(max(nproc, 1)):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        out[name] = (d, ranks)
+    print(f"launch of {', '.join(out)} ({max(nproc, 1)} process(es)"
+          f"{', under torchrun' if nproc else ''}): {wall:.1f} s wall")
+    return out
+
+
+def _leaf_errors(got_path: str, want_path: str, n: int = 3):
+    """The ``n`` parameter leaves of the largest |got - want| over the
+    leaf's largest entry: [(error, leaf)]."""
+    with np.load(got_path) as got, np.load(want_path) as want:
+        errs = []
+        for k in want.files:
+            if k.startswith("params/"):
+                w = want[k].astype(np.float64)
+                errs.append((float(np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)), k))
+    return sorted(errs, reverse=True)[:n]
+
+
+def fsdp_state_bytes(whole: int, worlds) -> dict:
+    """{N: the state bytes of one rank under FSDP at N ranks}: the
+    flagship's parameters, EMA and two AdamW moments (float32), each leaf
+    cut along the axis fsdp_placements picks, the rest whole; ``whole``
+    is the world-size-1 count that the runs measured."""
+    from vq_voice_swap_torch.parallel import fsdp_placements
+
+    with torch.device("meta"):
+        model = VQVAE(pred_name="unet", base_channels=64, enc_name="unet128", cond_mult=16,
+                      dictionary_size=512, num_labels=3)
+    total = sum(p.numel() for p in model.parameters())
+    assert 4 * 4 * total == whole, (total, whole)
+    out = {}
+    for n in worlds:
+        placements = fsdp_placements(model, n)
+        local = sum(p.numel() // (1 if placements[name] is None else n)
+                    for name, p in model.named_parameters())
+        out[n] = 4 * 4 * local
+    return out
+
+
+def parallel_paths(workdir: str, smi: str):
+    """The flagship's loop in bf16 with deterministic algorithms, in fresh
+    processes: without the launcher; under torchrun at world size 1 with
+    NCCL, DP, then --fsdp, then DP at --steps-per-dispatch 4; and two ranks
+    on the card over gloo (NCCL refuses two ranks on one device) at
+    per-rank batch 8, DP and then FSDP. Asserts that gloo carries the
+    collectives between the two processes, DP and K=4 have the plain
+    run's bits (logged values, model and EMA), FSDP within 1e-3 of its
+    losses (or its bits), every rank's launches a step (1 VQ and 178
+    GroupNorm statistics, apply and backward), the two ranks' losses
+    within 1e-2 of the one-rank DP run's at batch 16 with one codebook on
+    both ranks, the FSDP ranks' state bytes as the placements count them,
+    and their sharded ``--checkpoint-format dcp`` save read whole here
+    (finite, the DP run's usage counts); prints samples/s, peak device
+    memory and state bytes per rank (under FSDP at 2-8 ranks also counted
+    from the placements). Returns {run name, rank: counts}."""
+    gn_vqvae = GN_PER_PREDICTOR + GN_PER_ENCODER128
+    argv = TRAIN_VQVAE_ARGV + ["--bf16", "--device", "cuda"]
+    runs = parallel_runs(workdir, 0, [("plain", 1, argv)])
+    runs.update(parallel_runs(workdir, 1, [("dp", 1, argv), ("fsdp", 1, argv + ["--fsdp"]),
+                                           ("dp k4", GRAPH_K, argv)]))
+    half = TRAIN_VQVAE_ARGV[:TRAIN_VQVAE_ARGV.index("--batch-size")] + [
+        "--batch-size", str(BATCH // 2), "--bf16", "--device", "cuda:0"]
+    runs.update(parallel_runs(workdir, 2, [("gloo dp 2", 1, half), ("gloo fsdp 2", 1, half + [
+        "--fsdp", "--checkpoint-format", "dcp"])], gloo=True))
+
+    counts = {}
+    for name, (out, ranks) in runs.items():
+        k = GRAPH_K if name == "dp k4" else 1
+        calls = PARALLEL_STEPS if k == 1 else WARMUP_STEPS + 1 + PARALLEL_STEPS % k
+        for r, res in enumerate(ranks):
+            c = res["counts"]
+            assert c["group_norm_coeffs"] == c["group_norm_apply"] == gn_vqvae * calls, (name, c)
+            assert c["group_norm_backward"] == c["_bwd_cluster"] == gn_vqvae * calls, (name, c)
+            assert c["vq_assign"] == calls, (name, c)
+            assert res["world"] == len(ranks) and res["route"] == (
+                "cuda_graph" if k > 1 else "eager"), (name, res["route"])
+            counts[f"{name} rank {r}"] = c
+        log = _train_log(out)
+        assert [s for s, _ in log] == list(range(1, PARALLEL_STEPS + 1)), (name, log)
+        assert all(np.isfinite(v) for _, f in log for v in f.values()), name
+        res = ranks[0]
+        if k == 1:
+            rate = float(np.median([v["samples_per_sec"] for _, v in res["raw"]][2:-1]))
+            how = f"median of steps 3-{PARALLEL_STEPS - 1}"
+        else:
+            rate, how = res["raw"][-1][1]["samples_per_sec"], "the last window"
+        print(f"parallel {name} on {smi}: world {res['world']} ({res['device']}, steps "
+              f"{res['route']}), {PARALLEL_STEPS} steps in {res['seconds']:.3f} s of the loop, "
+              f"samples/s {rate:.4f} ({how}), peak device memory a rank "
+              f"{[round(x['peak_gib'], 3) for x in ranks]} GiB, state bytes a rank "
+              f"{[x['state'] for x in ranks]}, launches a rank a step: VQ "
+              f"{res['counts']['vq_assign'] / calls:g}, GroupNorm statistics "
+              f"{res['counts']['group_norm_coeffs'] / calls:g}, apply "
+              f"{res['counts']['group_norm_apply'] / calls:g}, backward "
+              f"{res['counts']['group_norm_backward'] / calls:g}")
+
+    def raw(name):
+        return [tuple(x) for x in runs[name][1][0]["raw"]]
+
+    def same(a: str, b: str):
+        """(loss error, the worst leaves' parameter errors, the same bits
+        in the logged values, model and EMA) of two runs."""
+        da, db = runs[a][0], runs[b][0]
+        model = _npz_leaf_errors(os.path.join(da, "model.npz"), os.path.join(db, "model.npz"))
+        ema = _npz_leaf_errors(os.path.join(da, "model_ema_0.9999.npz"),
+                               os.path.join(db, "model_ema_0.9999.npz"))
+        bits = model[2] and ema[2] and _logged(raw(a)) == _logged(raw(b))
+        worst = _leaf_errors(os.path.join(da, "model.npz"), os.path.join(db, "model.npz"))
+        return _loss_error(raw(a), raw(b)), worst, bits
+
+    print(f"parallel runs against the plain run, {PARALLEL_STEPS} steps, deterministic "
+          f"algorithms, on {smi}: loss error (relative), the worst leaves' parameter error "
+          f"(of the leaf's largest entry), the same bits (logs, model, EMA):")
+    results = {n: same(n, "plain") for n in ("dp", "fsdp", "dp k4")}
+    for n, (loss, worst, bits) in results.items():
+        print(f"  {n}: {loss:.3g}, {[(float(f'{e:.3g}'), leaf) for e, leaf in worst]}, {bits}")
+    assert results["dp"][2] and results["dp k4"][2], results
+    base = runs["plain"][1][0]["profile"]
+    for n in PROFILED:
+        prof = runs[n][1][0]["profile"]
+        print(f"  one more eager step of {n}, profiled on {smi}: wall {prof['wall_ms']:.3f} ms, "
+              f"{prof['launches']} host launch calls, self host ms of every operator "
+              f"{sum(ms for _, ms in prof['ops'].values()):.3f}")
+        if n == "plain":
+            continue
+        grew = sorted(((ms - base["ops"].get(key, [0, 0.0])[1], key, c,
+                        base["ops"].get(key, [0, 0.0])[0]) for key, (c, ms) in prof["ops"].items()),
+                      reverse=True)[:8]
+        for extra, key, c, c0 in grew:
+            print(f"    {key[:60]}: +{extra:.3f} self host ms against plain, calls {c0} -> {c}")
+    assert results["fsdp"][2] or results["fsdp"][0] <= 1e-3, results["fsdp"]
+    dp_state = sum(runs["dp"][1][0]["state"].values())
+    fsdp_state = sum(runs["fsdp"][1][0]["state"].values())
+    counted = fsdp_state_bytes(dp_state, (2, 4, 8))
+    assert fsdp_state == dp_state
+    print(f"  state bytes a rank at world size 1: DP {dp_state}, FSDP {fsdp_state}; under FSDP "
+          f"at N ranks, counted from the placements (parameters, EMA, two AdamW moments, "
+          f"float32): " + ", ".join(f"N={n} {b} ({b / dp_state:.4f} of DP)"
+                                    for n, b in counted.items()))
+    for name in ("gloo dp 2", "gloo fsdp 2"):
+        ranks = runs[name][1]
+        loss = _loss_error(raw(name), raw("dp"))
+        one_codebook = len({x["codebook"] for x in ranks}) == 1
+        print(f"  {name}: two gloo ranks on one card, batch {BATCH // 2} each, against DP "
+              f"at batch {BATCH}: loss error {loss:.3g} (relative), one codebook on both "
+              f"ranks {one_codebook}, codebook_used {_codebook_used(raw(name))}")
+        assert loss <= 1e-2 and one_codebook, name
+    measured = [sum(x["state"].values()) for x in runs["gloo fsdp 2"][1]]
+    print(f"  state bytes a rank, two ranks: DP {sum(runs['gloo dp 2'][1][0]['state'].values())}"
+          f", FSDP {measured} (counted: {counted[2]})")
+    assert measured == [counted[2]] * 2
+    # The two ranks' sharded dcp save, read whole in this process.
+    from vq_voice_swap_torch.convert import params_to_jax
+    from vq_voice_swap_torch.train import dcp as run_dcp
+
+    saved = params_to_jax(run_dcp.load_model(
+        os.path.join(runs["gloo fsdp 2"][0], "model.dcp"), VQVAE))
+    with np.load(os.path.join(runs["gloo dp 2"][0], "model.npz")) as dp:
+        assert set(saved) == {k for k in dp.files if k.startswith(("params/", "buffers/"))}
+        worst = max((np.abs(saved[k] - dp[k]).max() / max(np.abs(dp[k]).max(), 1e-30), k)
+                    for k in saved if k.startswith("params/"))
+        assert np.array_equal(saved["buffers/vq/usage_count"], dp["buffers/vq/usage_count"])
+    print(f"  gloo fsdp 2's model.dcp (two ranks' shards) read whole in one process: every "
+          f"leaf finite {all(np.isfinite(v).all() for v in saved.values())}, the usage counts "
+          f"the DP run's, parameters within {worst[0]:.3g} of a leaf's largest entry of "
+          f"the DP run's ({worst[1]})")
+    assert all(np.isfinite(v).all() for v in saved.values())
+    for out, _ in runs.values():
+        shutil.rmtree(out)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == [RANK_RUN]:
+        return rank_main(sys.argv[2])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2436,6 +2786,11 @@ def main() -> int:
         print(f"phase 6: {time.perf_counter() - t_start:.1f} s")
         print("data and eval launches, all runs: " + ", ".join(
             f"{k} {sum(c[k] for c in evals.values())}" for k in (
+                "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
+        parallel = parallel_paths(workdir, smi)
+        print(f"phase 7: {time.perf_counter() - t_start:.1f} s")
+        print("parallel launches, all ranks: " + ", ".join(
+            f"{k} {sum(c[k] for c in parallel.values())}" for k in (
                 "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
     check_tickets("the data and eval paths")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")

@@ -776,3 +776,100 @@ def test_grad_checkpoint_on_the_card_gives_the_gradients(cuda_gen, deterministic
     for n, w in want.items():
         err = (got[n] - w).abs().max().item()
         assert err <= 1e-5 * w.abs().max().item() + 1e-7 * top, (n, err)
+
+
+def _vqvae_steps(mode: str, state, batch, steps: int, remat=False):
+    """``steps`` VQ-VAE train steps (chunks 2 + 1, revival, the clip, one
+    EMA) as one process ("plain"), or as world size 1 of the default
+    process group, DP ("dp") or FSDP ("fsdp"): the losses and the final
+    parameters, EMA and usage counts, whole."""
+    import types
+
+    from vq_voice_swap_torch.parallel import (GradBuffer, StepSync, full_tensor,
+                                              shard_model_fsdp, shard_optimizer_like,
+                                              shard_params_like)
+    from vq_voice_swap_torch.train import (EMA, TrainStep, VQUpdateRule, VQVAETrainLoop,
+                                           build_optimizer)
+    from vq_voice_swap_torch.util import step_generator
+    from vq_voice_swap_torch.vq import VQLossConfig
+    from vq_voice_swap_torch.vq_vae import VQVAE
+
+    model = VQVAE(pred_name="unet", base_channels=8, enc_name="unet", cond_mult=4,
+                  dictionary_size=32, num_labels=3, dead_rate=4)
+    model.load_state_dict(state)
+    model.set_remat(remat)
+    model = model.cuda()
+    opt = build_optimizer(model, lr=1e-3, grad_clip=0.5)
+    ema = EMA(model, 0.9)
+    sync = None
+    if mode == "fsdp":
+        names = {id(p): n for n, p in model.named_parameters()}
+        opt_names = [names[id(p)] for p in opt.params]
+        shard_model_fsdp(model, 1)
+        shard_params_like(ema.model, model)
+        opt = shard_optimizer_like(opt, [model.get_parameter(n) for n in opt_names])
+    if mode != "plain":
+        opt.grad_buffer = GradBuffer(opt.params)
+        sync = StepSync(opt.grad_buffer)
+    args = types.SimpleNamespace(class_cond=True, jitter=0.1)
+    stub = types.SimpleNamespace(model=model, args=args,
+                                 vq_loss_config=lambda: VQLossConfig(commitment=0.25))
+    step = TrainStep(model, VQVAETrainLoop.build_loss_fn(stub), opt, [ema], microbatches=1,
+                     micro_remainder=1, vq_rule=VQUpdateRule(dead_rate=4, revive=True),
+                     drawer=VQVAETrainLoop.build_drawer(stub), sync=sync)
+    losses = [step(batch, step_generator(0, i, torch.device("cuda")))["loss"].item()
+              for i in range(steps)]
+    whole = {n: full_tensor(p).detach().clone() for n, p in model.named_parameters()}
+    shadow = {n: full_tensor(p).detach().clone() for n, p in ema.model.named_parameters()}
+    return losses, whole, shadow, model.vq.usage_count.clone()
+
+
+@pytest.mark.cuda
+def test_world_size_one_steps_match_the_plain_step(cuda_gen):
+    """A launched run of one rank (NCCL) takes the one-process step's bits
+    under deterministic algorithms; FSDP at world size 1, and FSDP with
+    --grad-checkpoint full (its recompute all-gathers again), within
+    float32 rounding of it."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vq_voice_swap_torch.vq_vae import VQVAE
+
+    init = VQVAE(pred_name="unet", base_channels=8, enc_name="unet", cond_mult=4,
+                 dictionary_size=32, num_labels=3, dead_rate=4)
+    state = {k: v.clone() for k, v in init.state_dict().items()}
+    state["vq.usage_count"] = torch.tensor([1, 2] * 16, dtype=torch.int32)
+    batch = {"samples": 0.5 * torch.randn(3, 8192, generator=cuda_gen, device="cuda"),
+             "label": torch.tensor([0, 1, 2], device="cuda")}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        plain = _vqvae_steps("plain", state, batch, 3)
+        dp = _vqvae_steps("dp", state, batch, 3)
+        fsdp = _vqvae_steps("fsdp", state, batch, 3)
+        remat = _vqvae_steps("fsdp", state, batch, 3, remat="full")
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    assert dp[0] == plain[0]
+    for got, want in zip(dp[1:], plain[1:]):
+        if isinstance(want, dict):
+            for n in want:
+                assert torch.equal(got[n], want[n]), n
+        else:
+            assert torch.equal(got, want)
+    for run in (fsdp, remat):
+        torch.testing.assert_close(torch.tensor(run[0]), torch.tensor(plain[0]), rtol=1e-5,
+                                   atol=0)
+        assert torch.equal(run[3], plain[3])
+        for got, want in zip(run[1:3], plain[1:3]):
+            for n in want:
+                scale = want[n].abs().max().clamp(min=1e-6)
+                assert ((got[n] - want[n]).abs().max() / scale).item() <= 1e-2, n

@@ -191,14 +191,19 @@ def test_train_cli_refuses_a_jax_run_directory(tmp_path, files, error, match):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--tensor-parallel", "2"], ["--fsdp"], ["--checkpoint-format", "orbax"],
+    ["--tensor-parallel", "2"], ["--fsdp", "--tensor-parallel", "2"],
+    ["--checkpoint-format", "orbax"],
 ])
 def test_train_clis_refuse_flags_not_ported(flag, capsys, tmp_path):
+    """--fsdp is ported; beside it, --tensor-parallel is still refused."""
+    refused, why = (("--checkpoint-format", "invalid choice") if "--checkpoint-format" in flag
+                    else ("--tensor-parallel", "not ported"))
     for cli in (train_vqvae, train_diffusion):
         with pytest.raises(SystemExit) as err:
             cli.main(["--device", "cpu", *flag, "--output-dir", str(tmp_path), "tones"])
         assert err.value.code == 2
-        assert flag[0].split("=")[0] in capsys.readouterr().err
+        message = capsys.readouterr().err.splitlines()[-1]
+        assert refused in message and why in message, message
     assert not os.listdir(tmp_path)
 
 

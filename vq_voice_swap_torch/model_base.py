@@ -57,12 +57,31 @@ class ModelBase(nn.Module):
     def save_kwargs(self) -> Dict[str, Any]:
         raise NotImplementedError
 
+    def class_name(self) -> str:
+        """The registered class a checkpoint names (FSDP wraps a sharded
+        model in a subclass of its own)."""
+        return next(c.__name__ for c in type(self).__mro__ if _REGISTRY.get(c.__name__) is c)
+
     def save(self, path: str, state: Optional[Dict[str, Any]] = None) -> None:
         """Write the model (or ``state``, a state_dict of its, such as a
         snapshot) as a JAX-format ``.npz``."""
         save_checkpoint(
-            path, type(self).__name__, self.save_kwargs(), params_to_jax(self, state)
+            path, self.class_name(), self.save_kwargs(), params_to_jax(self, state)
         )
+
+    @classmethod
+    def from_manifest(cls, class_name: str, kwargs: Dict[str, Any]) -> "ModelBase":
+        """A new model of the registered class ``class_name`` (``cls`` or a
+        subclass of it) built from a checkpoint's kwargs, on the CPU."""
+        _ensure_registered()
+        model_cls = _REGISTRY.get(class_name)
+        if model_cls is None:
+            raise ValueError(f"unknown model class in checkpoint: {class_name}")
+        if cls is not ModelBase and not issubclass(model_cls, cls):
+            raise ValueError(
+                f"checkpoint contains {class_name}, expected {cls.__name__}"
+            )
+        return model_cls(**kwargs)
 
     @classmethod
     def load(
@@ -77,19 +96,11 @@ class ModelBase(nn.Module):
         kernels. Neither is written back by ``save``. ``frozen`` loads the
         parameters with ``requires_grad`` off."""
         class_name, kwargs, state = _load_any_checkpoint(path)
-        _ensure_registered()
-        model_cls = _REGISTRY.get(class_name)
-        if model_cls is None:
-            raise ValueError(f"unknown model class in checkpoint: {class_name}")
-        if cls is not ModelBase and not issubclass(model_cls, cls):
-            raise ValueError(
-                f"checkpoint contains {class_name}, expected {cls.__name__}"
-            )
         if dtype is not None:
             kwargs = {**kwargs, "dtype": dtype}
         if fuse_levels:
             kwargs = {**kwargs, "fuse_levels": fuse_levels}
         device = resolve_device(device)
-        model = model_cls(**kwargs)
+        model = cls.from_manifest(class_name, kwargs)
         model.load_state_dict(state)
         return model.to(device).eval().requires_grad_(not frozen)

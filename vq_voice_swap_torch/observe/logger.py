@@ -12,6 +12,7 @@ resume scan pairs them as the JAX package's does. Writes hold a lock, since
 the worker writes too.
 """
 
+import os
 import re
 import threading
 from typing import Tuple
@@ -56,9 +57,17 @@ def _scan_resume_point(path: str) -> Tuple[int, int, bool]:
 class Logger:
     """Write metrics to a file and stdout; resumable with truncation."""
 
-    def __init__(self, out_filename: str, resume: bool = False):
+    def __init__(self, out_filename: str, resume: bool = False, write: bool = True):
+        """``write=False`` (a rank other than 0 of a distributed run) reads
+        the resume step if it can, prints nothing and never touches the
+        file; the loop takes rank 0's ``start_step``."""
         self.start_step = 0
         self._lock = threading.Lock()
+        self.out_file = None
+        if not write:
+            if resume and os.path.exists(out_filename):
+                self.start_step = _scan_resume_point(out_filename)[0]
+            return
         if not resume:
             self.out_file = open(out_filename, "w+")
             return
@@ -84,8 +93,9 @@ class Logger:
     def log(self, step: int, **kwargs) -> None:
         fields = " ".join(f"{k}={v:.05f}" for k, v in kwargs.items())
         line = f"step {step + self.start_step}: {fields}"
-        self._write(line + "\n")
-        print(line)
+        if self.out_file is not None:
+            self._write(line + "\n")
+            print(line)
 
     def mark_saving(self, step: int) -> None:
         """The marker of an asynchronous save of the state after ``step``
@@ -96,10 +106,13 @@ class Logger:
         self._write(SAVED_MSG)
 
     def _write(self, text: str) -> None:
+        if self.out_file is None:
+            return
         with self._lock:
             self.out_file.write(text)
             self.out_file.flush()
 
     def close(self) -> None:
         with self._lock:
-            self.out_file.close()
+            if self.out_file is not None:
+                self.out_file.close()

@@ -1,13 +1,17 @@
 """Exponential moving averages of a model's parameters (counterpart of
 ``vq_voice_swap_tpu/train/ema.py``), one copy of the model per rate:
 ``ema += (1 - rate) * (p - ema)`` after every step, with 1 - rate taken in
-float32 as the JAX package takes it."""
+float32 as the JAX package takes it. Under FSDP the copy's parameters are
+shards placed as the model's (``parallel.fsdp.shard_params_like``), and
+each shard follows its own."""
 
 import copy
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.dist import local_tensor
 
 __all__ = ["EMA"]
 
@@ -22,5 +26,5 @@ class EMA:
 
     @torch.no_grad()
     def update(self, model: nn.Module) -> None:
-        torch._foreach_lerp_(list(self.model.parameters()), list(model.parameters()),
-                             self.weight)
+        torch._foreach_lerp_([local_tensor(p) for p in self.model.parameters()],
+                             [local_tensor(p) for p in model.parameters()], self.weight)

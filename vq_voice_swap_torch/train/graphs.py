@@ -14,7 +14,9 @@ stream. Each call then:
 2. replays the graph: every forward and the accumulated gradients, the
    thousands of launches that hold the eager step to the host's pace;
 3. runs the rest of the step as the eager step runs it, on the graph's
-   outputs: the optimizer update, the codebook's usage counts, the
+   outputs: on N ranks the gradients' all-reduce and the metrics' (the
+   flat gradient buffer's views are the graph's static gradients), the
+   optimizer update, the codebook's usage counts, the
    revival (its picks are drawn from probabilities the step computes) and
    the EMAs. These are the eager step's own calls, so the step's
    arithmetic is the eager step's: AdamW keeps its step counts on the CPU
@@ -27,10 +29,11 @@ a resumed state before the first call, in place. A failed warm-up or
 capture raises.
 """
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
+from ..util import tree_map
 from ..vq import draw_revival_picks
 from .steps import TrainStep
 
@@ -38,16 +41,6 @@ __all__ = ["GraphedTrainStep", "WARMUP_STEPS"]
 
 # Eager forward-backward passes on the capturing stream before the capture.
 WARMUP_STEPS = 2
-
-
-def _map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return tree
 
 
 def _copy_into(dst: Any, src: Any) -> None:
@@ -88,8 +81,9 @@ class GraphedTrainStep:
         # set the parameters' .grad to.
         for p, g in zip(step.optimizer.params, self.grads):
             p.grad = g
+        metrics = tree_map(torch.clone, self.metrics)
+        step.synchronize(metrics, self.auxes)
         step.optimizer.step()
-        metrics = _map(torch.clone, self.metrics)
         revival = step.codebook(metrics, self.auxes)
         picks = None
         if revival is not None:
@@ -100,7 +94,7 @@ class GraphedTrainStep:
     def _capture(self, batch, draws) -> None:
         step = self.step
         device = batch["samples"].device
-        self.inputs = _map(torch.clone, (batch, draws))
+        self.inputs = tree_map(torch.clone, (batch, draws))
         static_batch, static_draws = self.inputs
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))

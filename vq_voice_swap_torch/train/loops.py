@@ -36,8 +36,22 @@ on a worker thread between ``# saving @ N`` and ``# saved``.
 
 A JAX npz run directory resumes: its optimizer state (``opt.npz``, flax
 msgpack) is read into AdamW (``convert/flax_msgpack.py``). Orbax
-directories are refused. Not ported: tensor parallelism and FSDP; the CLIs
-refuse them.
+directories are refused.
+
+Launched by ``torchrun`` (``python -m torch.distributed.run
+--nproc-per-node N -m vq_voice_swap_torch.train_<loop> ...``), a loop is
+one rank of a data-parallel run (``parallel/``): each rank drives one
+device (``cuda:LOCAL_RANK``; NCCL, or gloo with ``--device cpu``), reads
+its shard of every epoch, and the run computes what one device computes
+on the global batch, ``--batch-size`` (per rank) times N. Rank 0's built
+or resumed state is broadcast at the start; only rank 0 logs, writes
+``run_info_*.json`` and saves. ``--fsdp`` stores the parameters, EMAs and
+AdamW moments sharded over the ranks (FSDP2); its steps run eagerly, also
+in --steps-per-dispatch windows. ``--checkpoint-format dcp`` writes
+``model.dcp/`` and ``opt.dcp/`` with ``torch.distributed.checkpoint``,
+every rank its own shards (``train/dcp.py``); npz saves gather the state
+first. Without the launcher's environment a loop is the single-device
+loop. Not ported: tensor parallelism; the CLIs refuse it.
 """
 
 import argparse
@@ -63,9 +77,13 @@ from ..diffusion_model import DiffusionModel
 from ..model_base import ModelBase
 from ..models.init import init_like_flax
 from ..observe import Logger, LossTracker
-from ..util import resolve_device, step_generator
+from ..parallel import (GradBuffer, StepSync, agree, broadcast_from_primary, full_tensor,
+                        init_distributed, launched, rank, shard_model_fsdp,
+                        shard_optimizer_like, shard_params_like, world_size)
+from ..util import step_generator
 from ..vq import VQLossConfig
 from ..vq_vae import VQVAE
+from . import dcp
 from .ema import EMA
 from .graphs import GraphedTrainStep
 from .state import build_optimizer, prefix_predicate
@@ -85,7 +103,6 @@ __all__ = [
 # The JAX package's flags that the port does not run, and why.
 NOT_PORTED = {
     "--tensor-parallel": "tensor parallelism",
-    "--fsdp": "FSDP",
 }
 
 
@@ -131,24 +148,31 @@ class TrainLoop(ABC):
 
     def __init__(self, args: argparse.Namespace):
         self.args = args
+        self.device = init_distributed(args.device)
+        self.world, self.primary = world_size(), rank() == 0
+        self.distributed = launched()
+        if args.fsdp and not self.distributed:
+            raise ValueError("--fsdp shards over the ranks of a launched run: start it with "
+                             "python -m torch.distributed.run --nproc-per-node N -m ...")
         os.makedirs(args.output_dir, exist_ok=True)
         orbax = [f for f in ORBAX_CHECKPOINTS
                  if os.path.exists(self.path(f)) or os.path.exists(self.path(f + ".new"))]
         if orbax and not os.path.exists(self.opt_path()):
             raise RuntimeError(
                 f"{args.output_dir} holds the JAX package's Orbax checkpoint "
-                f"({', '.join(orbax)}) and no opt.pt: this port reads npz run directories "
+                f"({', '.join(orbax)}) and no {os.path.basename(self.opt_path())}: this port "
+                "reads npz and dcp run directories "
                 "only. Convert it with the JAX package (its checkpoint module's "
                 "load_checkpoint_orbax, then save_checkpoint to model.npz and "
                 "model_ema_<rate>.npz, and the optimizer state as opt.npz, as its npz "
                 "runs write them), or warm-start from an npz model with --pretrained-path "
                 "into a fresh --output-dir."
             )
-        self.device = resolve_device(args.device)
         self.rng_seed = args.seed
         self.steps_per_dispatch = max(1, args.steps_per_dispatch or 1)
         self.data_loader, self.num_labels = create_data_loader(
-            args.data_dir, args.batch_size, encoding=args.encoding, seed=self.rng_seed)
+            args.data_dir, args.batch_size, encoding=args.encoding, seed=self.rng_seed,
+            shard_index=rank(), num_shards=self.world)
         self.model, self.resume = self.create_model()
 
         self.ema_rates = [float(r) for r in args.ema_rate.split(",")]
@@ -159,7 +183,12 @@ class TrainLoop(ABC):
             self.model, lr=args.lr, weight_decay=args.weight_decay,
             frozen_fn=self.frozen_predicate(), lr_final=args.lr_final,
             lr_anneal_steps=args.lr_anneal_steps, grad_clip=args.grad_clip)
-        if os.path.exists(self.opt_path()):
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        self.opt_names = [names[id(p)] for p in self.optimizer.params]
+        if self.dcp and os.path.exists(self.opt_path()):
+            print("loading optimizer state from checkpoint...")
+            dcp.load_optimizer(self.opt_path(), self.optimizer, self.opt_names)
+        elif os.path.exists(self.opt_path()):
             print("loading optimizer state from checkpoint...")
             # Read to the CPU: AdamW moves the moments to their parameters'
             # device and leaves each step count where it finds it, and a
@@ -171,7 +200,12 @@ class TrainLoop(ABC):
             with open(self.path("opt.npz"), "rb") as f:
                 load_optax_adamw(self.optimizer, self.model, f.read())
 
-        self.logger = Logger(self.path("train_log.txt"), resume=self.resume)
+        self.logger = Logger(self.path("train_log.txt"), resume=self.resume,
+                             write=self.primary)
+        if self.distributed:
+            self._sync_state_from_primary()
+            if args.fsdp:
+                self._shard()
         self.tracker = LossTracker()
         self.total_steps = self.logger.start_step
         self.loop_steps = 0
@@ -180,14 +214,21 @@ class TrainLoop(ABC):
         if args.microbatch and args.microbatch < args.batch_size:
             microbatches = args.batch_size // args.microbatch
             micro_remainder = args.batch_size % args.microbatch
+        sync = None
+        if self.distributed:
+            # The whole parameters' gradients in one flat buffer (under FSDP
+            # the shards' are reduce-scattered by its hooks).
+            self.optimizer.grad_buffer = GradBuffer(self.optimizer.params)
+            sync = StepSync(self.optimizer.grad_buffer)
         self.train_step = TrainStep(
             self.model, self.build_loss_fn(), self.optimizer, self.emas,
             microbatches=microbatches, micro_remainder=micro_remainder,
-            vq_rule=self.vq_update_rule(), drawer=self.build_drawer())
+            vq_rule=self.vq_update_rule(), drawer=self.build_drawer(), sync=sync)
         # Windows of K steps replay the step's forwards and backward from a
-        # CUDA graph on the card; on the CPU they run eagerly.
+        # CUDA graph on the card (not under FSDP, whose collectives run in
+        # module hooks that a capture does not hold); else they run eagerly.
         self.graphed_step = None
-        if self.device.type == "cuda" and self.steps_per_dispatch > 1:
+        if self.device.type == "cuda" and self.steps_per_dispatch > 1 and not args.fsdp:
             self.graphed_step = GraphedTrainStep(self.train_step)
         self._pending: deque = deque()
         self._last_finish: Optional[float] = None
@@ -195,6 +236,38 @@ class TrainLoop(ABC):
         self._save_thread: Optional[threading.Thread] = None
         self._save_error: Optional[Exception] = None
         self.write_run_info()
+
+    @property
+    def dcp(self) -> bool:
+        return self.args.checkpoint_format == "dcp"
+
+    def _sync_state_from_primary(self) -> None:
+        """Make rank 0's built or resumed state every rank's: the model's
+        parameters and buffers, the EMAs, AdamW's state, its count and the
+        log's start step. The ranks must agree on what they found in the
+        run directory first (a run over several hosts needs it on a shared
+        filesystem)."""
+        opt_state = [self.optimizer.adamw.state.get(p, {}) for p in self.optimizer.params]
+        agree([int(self.resume), *(len(st) for st in opt_state)],
+              f"what {self.args.output_dir} holds (resume, AdamW state a parameter); a run "
+              "over several hosts needs its --output-dir on a shared filesystem")
+        steps = torch.tensor([self.logger.start_step, self.optimizer.count])
+        tensors = [t.detach() for t in self.model.state_dict().values()]
+        for ema in self.emas:
+            tensors += [p.detach() for p in ema.model.parameters()]
+        for st in opt_state:
+            tensors += [st[k] for k in sorted(st)]
+        broadcast_from_primary(tensors + [steps])
+        self.logger.start_step, self.optimizer.count = (int(v) for v in steps)
+
+    def _shard(self) -> None:
+        """--fsdp: shard the model, then each EMA and AdamW's moments as
+        its parameters are (``parallel/fsdp.py``)."""
+        shard_model_fsdp(self.model, self.world)
+        for ema in self.emas:
+            shard_params_like(ema.model, self.model)
+        self.optimizer = shard_optimizer_like(
+            self.optimizer, [self.model.get_parameter(n) for n in self.opt_names])
 
     # ----------------------------------------------------------- main loop
 
@@ -319,7 +392,7 @@ class TrainLoop(ABC):
             seconds = now - (self._last_finish or dispatched)
         self._last_finish = now
         self._last_done = done
-        rate = self.args.batch_size * len(window) / seconds
+        rate = self.args.batch_size * self.world * len(window) / seconds
         for j, (metrics, loss) in enumerate(zip(window, losses)):
             self.tracker.add(metrics["ts"].cpu().numpy(),
                              metrics["mses"].float().cpu().numpy())
@@ -368,19 +441,23 @@ class TrainLoop(ABC):
         return os.path.join(self.args.output_dir, name)
 
     def checkpoint_path(self) -> str:
-        return self.path("model.npz")
+        return self.path("model.dcp" if self.dcp else "model.npz")
 
     def ema_path(self, rate: float) -> str:
         return self.path(f"model_ema_{rate}.npz")
 
     def opt_path(self) -> str:
-        return self.path("opt.pt")
+        return self.path("opt.dcp" if self.dcp else "opt.pt")
 
     def create_model(self) -> Tuple[ModelBase, bool]:
         if os.path.exists(self.checkpoint_path()):
             print("loading from checkpoint...")
-            model = self.model_class().load(self.checkpoint_path(), device=self.device,
-                                            frozen=False)
+            if self.dcp:
+                model = dcp.load_model(self.checkpoint_path(), self.model_class())
+                model = model.to(self.device).eval()
+            else:
+                model = self.model_class().load(self.checkpoint_path(), device=self.device,
+                                                frozen=False)
             resume = True
         else:
             print("creating new model")
@@ -408,18 +485,33 @@ class TrainLoop(ABC):
         emas = []
         for rate in self.ema_rates:
             ema = EMA(self.model, rate)
-            if os.path.exists(self.ema_path(rate)):
+            if not self.dcp and os.path.exists(self.ema_path(rate)):
                 print(f"loading EMA {rate} from checkpoint...")
                 ema.model.load_state_dict(
                     ModelBase.load(self.ema_path(rate), device=self.device).state_dict())
             emas.append(ema)
+        if self.dcp and os.path.exists(self.checkpoint_path()):
+            for rate in dcp.load_emas(self.checkpoint_path(), emas):
+                print(f"loading EMA {rate} from checkpoint...")
         return emas
 
     def save(self, steps_done: int) -> None:
         """Write the model, its EMAs and the optimizer state, then
         ``# saved``. With --async-save, snapshot them, mark ``# saving @
         steps_done`` and write from a worker thread (one save in flight; a
-        failed one raises at the next save or at the loop's end)."""
+        failed one raises at the next save or at the loop's end). On N
+        ranks every rank gathers the sharded state (collectives, so in this
+        thread) and rank 0 writes; ``dcp`` saves are collective and
+        synchronous."""
+        if self.dcp:
+            dcp.save_run(self.checkpoint_path(), self.opt_path(), self.model, self.emas,
+                         self.optimizer, self.opt_names)
+            self.logger.mark_save()
+            return
+        if not self.primary:
+            if self.args.fsdp:
+                self._state(lambda t: t)  # every rank takes part in the gathers
+            return
         if not self.args.async_save:
             self._write_checkpoints(self._state(lambda t: t))
             return
@@ -456,16 +548,16 @@ class TrainLoop(ABC):
     def _state(self, take: Callable[[torch.Tensor], torch.Tensor]) -> Dict[str, Any]:
         """The state a save writes, each tensor through ``take``: the
         model's state_dict, each EMA's parameters with the model's buffers
-        (usage counts), and the optimizer's state_dict."""
-        model = {k: take(v) for k, v in self.model.state_dict().items()}
+        (usage counts), and the optimizer's state_dict; shards whole."""
+        model = {k: take(full_tensor(v)) for k, v in self.model.state_dict().items()}
         buffers = {n for n, _ in self.model.named_buffers()}
         emas = []
         for ema in self.emas:
-            state = {n: take(p) for n, p in ema.model.named_parameters()}
+            state = {n: take(full_tensor(p)) for n, p in ema.model.named_parameters()}
             state.update((n, model[n]) for n in buffers)
             emas.append(state)
         opt = self.optimizer.state_dict()
-        opt["adamw"]["state"] = {i: {k: take(v) for k, v in st.items()}
+        opt["adamw"]["state"] = {i: {k: take(full_tensor(v)) for k, v in st.items()}
                                  for i, st in opt["adamw"]["state"].items()}
         return {"model": model, "emas": emas, "opt": opt}
 
@@ -488,8 +580,11 @@ class TrainLoop(ABC):
                 raise RuntimeError("asynchronous checkpoint save failed") from err
 
     def write_run_info(self) -> None:
+        if not self.primary:
+            return
         info = dict(args=vars(self.args), command=sys.argv[0], start_steps=self.total_steps,
-                    num_devices=1, device=str(self.device))
+                    num_devices=self.world, device=str(self.device),
+                    steps_per_dispatch_route="cuda_graph" if self.graphed_step else "eager")
         with open(self.path(f"run_info_{int(time.time())}.json"), "w") as f:
             json.dump(info, f, indent=4)
 
@@ -559,8 +654,9 @@ class TrainLoop(ABC):
                             help="how many steps metric fetches may lag behind")
         parser.add_argument("--steps-per-dispatch", default=1, type=int,
                             help="run the steps in windows of K staged batches; on CUDA "
-                                 "the step is one CUDA graph replayed K times a window "
-                                 "(saves land on window boundaries)")
+                                 "the step is one CUDA graph replayed K times a window, "
+                                 "except under --fsdp, whose windows run eagerly (saves "
+                                 "land on window boundaries)")
         parser.add_argument("--async-save", action="store_true",
                             help="write checkpoints from a worker thread, overlapping "
                                  "the writes with training")
@@ -571,10 +667,18 @@ class TrainLoop(ABC):
                                  "copy on the card until the worker has written it)")
         parser.add_argument("--max-steps", default=None, type=int,
                             help="stop after this many steps (default: run until killed)")
-        parser.add_argument("--checkpoint-format", default="npz", choices=("npz",),
-                            help="npz only; Orbax directories are not ported")
+        parser.add_argument("--fsdp", action="store_true",
+                            help="ZeRO-3 over the ranks of a launched run: parameters, "
+                                 "EMAs and AdamW moments stored sharded (state memory a "
+                                 "rank scales 1/N); --steps-per-dispatch windows run "
+                                 "eagerly")
+        parser.add_argument("--checkpoint-format", default="npz", choices=("npz", "dcp"),
+                            help="npz: single files, gathered and written by rank 0; dcp: "
+                                 "model.dcp/ and opt.dcp/ through torch.distributed."
+                                 "checkpoint, every rank writing its shards (synchronous; "
+                                 "resumes at any world size). Orbax is not ported")
         parser.add_argument("--device", default=None,
-                            help="torch device (default: cuda)")
+                            help="torch device (default: cuda; cuda:LOCAL_RANK under torchrun)")
         for flag in NOT_PORTED:
             parser.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
         parser.add_argument("data_dir", type=str)

@@ -20,6 +20,16 @@ computes what it would have drawn itself. The step is four parts:
 ``codebook`` (the usage update, and the revival's probabilities) and
 ``finish`` (the revival from picks drawn from those probabilities, then
 the EMAs).
+
+On N ranks (a ``sync``, ``parallel.dist.StepSync``) the step computes what
+the one-device step computes on the global batch: every rank draws the
+global chunks' draws and keeps its rows, weights its chunks' losses by
+their share of the global batch (its local weights over N), and after the
+backward ``synchronize`` sums the gradients and the scalar metrics and
+gathers the per-row ones; the codebook ORs the ``used`` masks over the
+ranks and revives from every rank's encoder rows, in the global batch's
+order, so that every rank draws the same picks and keeps the same
+codebook.
 """
 
 from dataclasses import dataclass
@@ -28,6 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.dist import StepSync
 from ..vq import draw_revival_picks, revival_probs, revive_dead_codes, update_usage
 from .ema import EMA
 from .state import Optimizer
@@ -72,7 +83,8 @@ class TrainStep:
     ``microbatches`` is the number of full chunks and ``micro_remainder``
     the size of a trailing partial one (0: none). Metrics stay on the
     device: "loss", "mses", "ts", "extra" and, with a ``vq_rule``,
-    "codebook_used". ``drawer`` gives ``draw``."""
+    "codebook_used". ``drawer`` gives ``draw``; ``sync`` makes it one
+    rank's share of a distributed step."""
 
     def __init__(
         self,
@@ -84,6 +96,7 @@ class TrainStep:
         micro_remainder: int = 0,
         vq_rule: Optional[VQUpdateRule] = None,
         drawer: Optional[Drawer] = None,
+        sync: Optional[StepSync] = None,
     ):
         self.model = model
         self.loss_fn = loss_fn
@@ -93,6 +106,8 @@ class TrainStep:
         self.micro_remainder = micro_remainder
         self.vq_rule = vq_rule
         self.drawer = drawer
+        self.sync = sync
+        self.world = sync.world if sync is not None else 1
 
     @property
     def n_forwards(self) -> int:
@@ -118,7 +133,11 @@ class TrainStep:
     def draw(self, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator]) -> List[Dict[str, Any]]:
         """The draws of each forward of the step, drawn from ``generator``
-        as the step itself would draw them."""
+        as the step itself would draw them (on N ranks: this rank's rows of
+        the global chunks' draws)."""
+        if self.sync is not None:
+            return [self.sync.local_draws(self.drawer, mb, generator)
+                    for _, mb in self.chunks(batch)]
         return [self.drawer(mb, generator) for _, mb in self.chunks(batch)]
 
     def __call__(
@@ -130,7 +149,10 @@ class TrainStep:
     ) -> Dict[str, Any]:
         """``draws`` (one dict per forward) and ``revive_picks`` replace
         the step's random draws from ``generator``."""
+        if self.sync is not None and draws is None:
+            draws = self.draw(batch, generator)
         metrics, auxes = self.forward_backward(batch, generator, draws)
+        self.synchronize(metrics, auxes)
         self.optimizer.step()
         revival = self.codebook(metrics, auxes)
         if revival is not None and revive_picks is None:
@@ -151,6 +173,7 @@ class TrainStep:
         extra: Dict[str, torch.Tensor] = {}
         auxes = []
         for i, (weight, mb) in enumerate(self.chunks(batch)):
+            weight = weight / self.world
             mb_loss, aux = self.loss_fn(mb, generator, draws[i] if draws else {})
             (mb_loss if weight == 1.0 else mb_loss * weight).backward()
             loss = loss + mb_loss.detach() * weight
@@ -160,6 +183,20 @@ class TrainStep:
         metrics = {"loss": loss, "mses": _cat(auxes, "mses"), "ts": _cat(auxes, "ts"),
                    "extra": extra}
         return metrics, auxes
+
+    def synchronize(self, metrics: Dict[str, Any], auxes: List[Dict[str, Any]]) -> None:
+        """On N ranks, after the backward: the gradients summed over the
+        ranks, and ``metrics`` made the global step's (in place)."""
+        if self.sync is None:
+            return
+        self.sync.reduce_grads()
+        keys = sorted(metrics["extra"])
+        summed = self.sync.sum_scalars([metrics["loss"]] + [metrics["extra"][k] for k in keys])
+        metrics["loss"] = summed[0]
+        metrics["extra"] = dict(zip(keys, summed[1:]))
+        rows = [a["ts"].shape[0] for a in auxes]
+        for k in ("mses", "ts"):
+            metrics[k] = self.sync.gather_rows(metrics[k], rows)
 
     def codebook(self, metrics: Dict[str, Any],
                  auxes: List[Dict[str, Any]]) -> Optional[Revival]:
@@ -173,6 +210,8 @@ class TrainStep:
             used = auxes[0]["used"]
             for a in auxes[1:]:
                 used = used | a["used"]
+            if self.sync is not None:
+                used = self.sync.any_used(used)
             usage = update_usage(vq.usage_count, _cat(auxes, "idxs"), self.vq_rule.dead_rate,
                                  decay=self.n_forwards, used=used)
             # Liveness before revival refills the dead codes.
@@ -181,6 +220,8 @@ class TrainStep:
                 vq.usage_count.copy_(usage)
                 return None
             enc_flat = _cat(auxes, "enc_flat")
+            if self.sync is not None:
+                enc_flat = self.sync.gather_rows(enc_flat, [a["ts"].shape[0] for a in auxes])
             return Revival(usage, enc_flat, revival_probs(vq.dictionary, enc_flat))
 
     def finish(self, revival: Optional[Revival], picks: Optional[torch.Tensor]) -> None:

@@ -1,11 +1,11 @@
 """Device selection and seeded generators shared by the entry points."""
 
-from typing import Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "step_generator"]
+__all__ = ["resolve_device", "step_generator", "tree_map"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -26,3 +26,14 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     (seed, step) alone, so a resumed run draws what it would have."""
     state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) >> 1)
+
+
+def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
+    """``fn`` applied to every tensor of nested dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return tree
