@@ -163,6 +163,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the base-32 classifier, f32 with TF32 off, on the card against the CPU
    (features and probabilities within 1e-4 of their largest entry).
 
+7. Data parallelism and FSDP (``parallel_paths``): the bf16 flagship
+   without the launcher, under torchrun at world size 1 (DP, FSDP, DP at
+   K=4) and on two gloo ranks sharing the card (DP, FSDP with a dcp save);
+   the same bits or losses within 1e-2, launches a rank, state bytes.
+8. Tensor parallelism (``tensor_parallel_paths``): one torchrun launch of
+   4 gloo ranks sharing the card, 2 data rows x 2 model columns, each rank
+   through the CLIs' ``main`` or the train loop with --tensor-parallel 2:
+   phase 3's swap (f32, TF32 off, 10 DPM++ steps; codes equal, samples
+   within 1e-3 of the world-1 run's largest magnitude), bf16 sampling at
+   --fuse-levels 2 (2 samples split over the data rows, 5 steps; the
+   world-1 files, within 1e-1), the bf16 flagship at global batch 4 for 3
+   steps with deterministic algorithms, with and without --fsdp (losses
+   within 1e-2 of the world-1 run's), one more profiled step; every
+   rank's launches equal to the world-1 run's, state bytes a rank equal to
+   the placements' count; wall seconds, rates and peak memory a rank.
+
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script exits non-zero and prints no
@@ -2418,7 +2434,7 @@ def check_gloo_collectives() -> None:
     rank, world = dist.get_rank(), dist.get_world_size()
     x = torch.full((1000,), rank + 1.0, device=dev)
     dist.all_reduce(x)
-    used = torch.tensor([rank, 1 - rank, 0], dtype=torch.uint8, device=dev)
+    used = torch.tensor([rank == 0, rank == world - 1, 0], dtype=torch.uint8, device=dev)
     dist.all_reduce(used, op=dist.ReduceOp.MAX)
     parts = [torch.empty(2, device=dev) for _ in range(world)]
     dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
@@ -2714,12 +2730,337 @@ def parallel_paths(workdir: str, smi: str):
     return counts
 
 
+# ------------------------------------------------------------------ phase 8
+
+# Tensor parallelism: one torchrun launch of TP_RANKS ranks sharing the
+# card over gloo (NCCL refuses two ranks on one device), a grid of
+# TP_RANKS / TP_SIZE data rows by TP_SIZE model columns, each rank running
+# this script's tp_rank_main. Beside each run, its world-1 counterpart in
+# this process on the same weights and seed.
+TP_SIZE = 2
+TP_RANKS = 4
+TP_DEVICE = "cuda:0"
+TP_SPEC = "--tp-run"
+TP_SWAP_STEPS = 10
+TP_SAMPLE_STEPS = 5
+TP_TRAIN_STEPS = 3
+TP_TRAIN_BATCH = 4  # the global batch: TP_TRAIN_BATCH / data rows a rank
+# Stated tolerances, of the largest magnitude of the world-1 output (or 1):
+# the swap in f32 with TF32 off (10 DPM++ steps; a cut convolution computes
+# each output channel from the whole input, and three runs on an H100 gave
+# 0), bf16 sampling (the batch's rows split over the data rows as well;
+# three runs gave at most 6.26e-3); the training runs' losses, relative, as
+# phase 7's two ranks against one.
+TP_SWAP_TOL = 1e-6
+TP_SAMPLE_TOL = 2e-2
+TP_LOSS_TOL = 1e-2
+
+
+def _swap_argv(ckpt: str, clip: str, out: str):
+    return ["--label", "7", "--input-file", clip, "--sample-steps", str(TP_SWAP_STEPS),
+            "--sampler", "dpmpp", ckpt, out]
+
+
+def _sample_argv(ckpt: str, out: str):
+    return ["--checkpoint-path", ckpt, "--bf16", "--fuse-levels", str(FUSE_LEVELS),
+            "--sampler", "ddpm", "--schedule", "quadratic", "--sample-steps",
+            str(TP_SAMPLE_STEPS), "--num-samples", "2", "--batch-size", "2",
+            "--sample-path", out]
+
+
+def _tp_train_argv(out: str, batch: int):
+    argv = TRAIN_VQVAE_ARGV[:TRAIN_VQVAE_ARGV.index("--batch-size")]
+    return argv + ["--batch-size", str(batch), "--bf16", "--max-steps", str(TP_TRAIN_STEPS),
+                   "--save-interval", str(TP_TRAIN_STEPS), "--output-dir", out]
+
+
+@contextlib.contextmanager
+def recorded_outputs(into: dict):
+    """Record what the sampling CLIs produce: the swap's (audio, codes)
+    from ``sample_vqvae.convert`` and each float sample array that
+    ``sample_diffusion.write_wav`` writes, by file name."""
+    convert, write = sample_vqvae.convert, sample_diffusion.write_wav
+
+    def record_convert(*args, **kwargs):
+        audio, codes = convert(*args, **kwargs)
+        into["swap"] = (audio.float().cpu().numpy(), codes.cpu().numpy())
+        return audio, codes
+
+    def record_write(path, samples, encoding):
+        into[os.path.basename(path)] = np.array(samples, np.float32)
+        return write(path, samples, encoding)
+
+    sample_vqvae.convert, sample_diffusion.write_wav = record_convert, record_write
+    try:
+        yield into
+    finally:
+        sample_vqvae.convert, sample_diffusion.write_wav = convert, write
+
+
+def _timed(fn):
+    """(fn's result, wall seconds, launch counts, peak GiB) with the counts
+    set to 0 and the peak reset just before."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def tp_runs(root: str, ckpt: str, uncond_ckpt: str, clip: str, tp: bool) -> dict:
+    """Phase 8's runs, as a rank of the grid (``tp``: with
+    --tensor-parallel, on cuda:0) or in this process: the swap (f32, TF32
+    off), bf16 sampling, then the flagship's training at the global batch
+    without and with --fsdp (only under ``tp``; deterministic). Returns
+    {run: its wall seconds, launches, peak GiB and what it produced}."""
+    from vq_voice_swap_torch.parallel import full_tensor, rank
+
+    me = rank()
+    flags = ["--device", TP_DEVICE] + (["--tensor-parallel", str(TP_SIZE)] if tp else [])
+    tag = "tp" if tp else "one"
+    res = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with recorded_outputs({}) as got:
+        _, seconds, counts, peak = _timed(lambda: sample_vqvae.main(
+            _swap_argv(ckpt, clip, os.path.join(root, f"swap_{tag}.wav")) + flags))
+    res["swap"] = dict(seconds=seconds, counts=counts, peak_gib=peak)
+    if me == 0:
+        np.save(os.path.join(root, f"swap_{tag}_audio.npy"), got["swap"][0])
+        np.save(os.path.join(root, f"swap_{tag}_codes.npy"), got["swap"][1])
+    torch.backends.cudnn.allow_tf32 = True
+    with recorded_outputs({}) as got:
+        _, seconds, counts, peak = _timed(lambda: sample_diffusion.main(
+            _sample_argv(uncond_ckpt, os.path.join(root, f"samples_{tag}")) + flags))
+    res["sampling"] = dict(seconds=seconds, counts=counts, peak_gib=peak)
+    if me == 0:
+        for name, samples in got.items():
+            np.save(os.path.join(root, f"samples_{tag}_{name}.npy"), samples)
+    train = [("one", TP_TRAIN_BATCH, [])] if not tp else [
+        ("tp", TP_TRAIN_BATCH * TP_SIZE // TP_RANKS, flags),
+        ("tp fsdp", TP_TRAIN_BATCH * TP_SIZE // TP_RANKS, flags + ["--fsdp"])]
+    for name, batch, extra in train:
+        out = os.path.join(root, "train_" + name.replace(" ", "_"))
+        argv = _tp_train_argv(out, batch) + (extra or ["--device", TP_DEVICE])
+        with deterministic(True), recorded_log([]) as raw:
+            loop, seconds, counts, peak = _timed(lambda: _run_loop(argv))
+        vq = loop.model.vq
+        res[name] = dict(seconds=seconds, counts=counts, peak_gib=peak, raw=raw, out=out,
+                         state=_state_bytes(loop), codebook=float(
+                             full_tensor(vq.dictionary).double().sum().item()))
+        if name != "tp fsdp":  # one more step, profiled, where the host time goes
+            res[name]["profile"] = host_profile(loop)
+            if tp:  # steps without deterministic algorithms: whole leaves still agree
+                res[name]["whole_digest"] = _whole_digest(loop)
+        loop.logger.close()
+        del loop
+        gc.collect()
+    return res
+
+
+def _whole_digest(loop) -> str:
+    """A digest of the bytes of the parameters and EMA copies that the
+    model groups hold whole (the dictionary, the 1-channel output convs)."""
+    import hashlib
+
+    from vq_voice_swap_torch.parallel import cut_axes, full_tensor
+
+    cut = cut_axes(loop.model)
+    digest = hashlib.sha1()
+    for model in [loop.model] + [e.model for e in loop.emas]:
+        for n, p in model.named_parameters():
+            if n not in cut:
+                digest.update(full_tensor(p).detach().cpu().contiguous().view(torch.uint8)
+                              .numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _run_loop(argv):
+    loop = VQVAETrainLoop(VQVAETrainLoop.arg_parser().parse_args(argv))
+    loop.loop()
+    return loop
+
+
+def tp_rank_main(spec: str) -> int:
+    """One rank of phase 8's launch, ``spec`` a JSON {"root", "ckpt",
+    "uncond", "clip"}: the group over gloo on cuda:0 (its collectives
+    checked), then ``tp_runs``; writes rank<r>.json into root."""
+    from vq_voice_swap_torch.parallel import init_distributed, rank
+
+    spec = json.loads(spec)
+    init_distributed(TP_DEVICE, "gloo")
+    check_gloo_collectives()
+    res = tp_runs(spec["root"], spec["ckpt"], spec["uncond"], spec["clip"], tp=True)
+    with open(os.path.join(spec["root"], f"rank{rank()}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def tp_state_bytes(model_size: int, data_size: int, fsdp: bool) -> int:
+    """The state bytes of one rank (the flagship's parameters, EMA and two
+    AdamW moments, float32) on a grid of ``model_size`` columns, each leaf
+    cut as tp_placements (and, with ``fsdp``, fsdp_placements over
+    ``data_size`` rows) cut it."""
+    from vq_voice_swap_torch.parallel import fsdp_placements, tp_placements
+
+    with torch.device("meta"):
+        model = VQVAE(pred_name="unet", base_channels=64, enc_name="unet128", cond_mult=16,
+                      dictionary_size=512, num_labels=3)
+    cut = tp_placements(model, model_size)
+    data = fsdp_placements(model, data_size, model_size) if fsdp else {}
+    return 16 * sum(p.numel() // (model_size if cut[n] is not None else 1)
+                    // (data_size if data.get(n) is not None else 1)
+                    for n, p in model.named_parameters())
+
+
+def _scaled_error(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| over the larger of 1 and max |want|."""
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got.astype(np.float64) - want).max() / max(1.0, np.abs(want).max()))
+
+
+def tensor_parallel_paths(workdir: str, smi: str, ckpt: str, uncond_ckpt: str) -> dict:
+    """Phase 8: the swap (phase 3's model, f32 with TF32 off, 10 DPM++
+    steps), bf16 sampling (phase 3's unconditional unet64, --fuse-levels
+    2, 2 samples, 5 steps) and the bf16 flagship's training (global batch
+    4, 3 steps, deterministic, without and with --fsdp, and one more
+    profiled step without it) on TP_RANKS gloo ranks at TP_SIZE model
+    columns, against their world-1 runs in this process. Asserts the
+    swap's codes equal and its samples, the sampled files and the losses
+    within the stated tolerances; the whole leaves the same bytes on
+    every rank after the profiled steps; every rank's
+    launches equal to the world-1 run's (the swap: 1 VQ and 131
+    GroupNorm statistics and apply a predictor call; sampling: 10 of each
+    fused kernel a step; training: 1 VQ and 178 GroupNorm statistics,
+    apply and backward a step); and every rank's state bytes equal to the
+    placements' count. Prints each run's wall seconds, rate and peak
+    device memory a rank. Returns {run, rank: launch counts}."""
+    root = os.path.join(workdir, "tp")
+    os.makedirs(root)
+    clip = os.path.join(workdir, "in.wav")
+    t0 = time.perf_counter()
+    one = tp_runs(root, ckpt, uncond_ckpt, clip, tp=False)
+    world1 = time.perf_counter() - t0
+    spec = json.dumps(dict(root=root, ckpt=ckpt, uncond=uncond_ckpt, clip=clip))
+    t0 = time.perf_counter()
+    printed = _launch(workdir, "tensor parallelism", TP_RANKS, [TP_SPEC, spec])
+    wall = time.perf_counter() - t0
+    assert printed.count(" carries ") == TP_RANKS, printed[-3000:]
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"phase 8 on {smi}: the world-1 runs {world1:.1f} s in this process; one launch of "
+          f"{TP_RANKS} gloo ranks on {TP_DEVICE}, {TP_RANKS // TP_SIZE} data rows x {TP_SIZE} "
+          f"model columns: {wall:.1f} s wall")
+    counts = {}
+
+    def same_launches(run: str, per: str, calls: int):
+        want = one[run if run in one else "one"]["counts"]
+        for r, res in enumerate(ranks):
+            c = res[run]["counts"]
+            counts[f"{run} rank {r}"] = c
+            assert c == want, (run, r, c, want)
+        c = ranks[0][run]["counts"]
+        return ", ".join(f"{k} {v / calls:g}" for k, v in c.items() if v) + f" a {per}"
+
+    # The swap.
+    audio, codes = (np.load(os.path.join(root, f"swap_tp_{k}.npy")) for k in ("audio", "codes"))
+    want_audio, want_codes = (np.load(os.path.join(root, f"swap_one_{k}.npy"))
+                              for k in ("audio", "codes"))
+    err = _scaled_error(audio, want_audio)
+    launches = same_launches("swap", "predictor call", TP_SWAP_STEPS)
+    print(f"  swap (f32, TF32 off, {TP_SWAP_STEPS} DPM++ steps, 4 s): codes equal "
+          f"{np.array_equal(codes, want_codes)}, samples within {err:.3g} of the world-1 "
+          f"run's (limit {TP_SWAP_TOL}); wall {[round(x['swap']['seconds'], 3) for x in ranks]}"
+          f" s a rank, model load included (world 1: {one['swap']['seconds']:.3f} s), RTF "
+          f"{SAMPLES / SAMPLE_RATE / ranks[0]['swap']['seconds']:.4f}x (world 1: "
+          f"{SAMPLES / SAMPLE_RATE / one['swap']['seconds']:.4f}x); peak device memory a rank "
+          f"{[round(x['swap']['peak_gib'], 3) for x in ranks]} GiB (world 1: "
+          f"{one['swap']['peak_gib']:.3f}); launches a rank: {launches}")
+    assert np.array_equal(codes, want_codes) and err <= TP_SWAP_TOL
+    assert ranks[0]["swap"]["counts"]["vq_assign"] == 1
+    assert ranks[0]["swap"]["counts"]["group_norm_coeffs"] == GN_PER_PREDICTOR * TP_SWAP_STEPS
+
+    # Sampling.
+    names = sorted(os.listdir(os.path.join(root, "samples_one")))
+    assert sorted(os.listdir(os.path.join(root, "samples_tp"))) == names, names
+    errs = [_scaled_error(np.load(os.path.join(root, f"samples_tp_{n}.npy")),
+                          np.load(os.path.join(root, f"samples_one_{n}.npy"))) for n in names]
+    launches = same_launches("sampling", "step", TP_SAMPLE_STEPS)
+    rate = [2 / x["sampling"]["seconds"] for x in ranks]
+    print(f"  sampling (bf16, --fuse-levels {FUSE_LEVELS}, {TP_SAMPLE_STEPS} steps, 2 samples "
+          f"split over the data rows): files {names}, the world-1 run's; samples within "
+          f"{[float(f'{e:.3g}') for e in errs]} (limit {TP_SAMPLE_TOL}); samples/s a rank "
+          f"{[round(r, 4) for r in rate]} (world 1: {2 / one['sampling']['seconds']:.4f}); "
+          f"peak device memory a rank {[round(x['sampling']['peak_gib'], 3) for x in ranks]} "
+          f"GiB; launches a rank: {launches}")
+    assert max(errs) <= TP_SAMPLE_TOL
+    assert ranks[0]["sampling"]["counts"]["fused_resblock_stats"] == \
+        ranks[0]["sampling"]["counts"]["fused_resblock_apply"] == \
+        FUSED_PER_PREDICTOR * TP_SAMPLE_STEPS
+
+    # Training.
+    dp = tp_state_bytes(1, 1, False)  # a rank's under DP: 984,246,288 (phase 7)
+    assert sum(one["one"]["state"].values()) == dp, (one["one"]["state"], dp)
+    want_raw = [tuple(x) for x in one["one"]["raw"]]
+    gn = GN_PER_PREDICTOR + GN_PER_ENCODER128
+    for name, fsdp in (("tp", False), ("tp fsdp", True)):
+        launches = same_launches(name, "step", TP_TRAIN_STEPS)
+        c = ranks[0][name]["counts"]
+        assert c["group_norm_coeffs"] == c["group_norm_apply"] == gn * TP_TRAIN_STEPS, c
+        assert c["group_norm_backward"] == c["_bwd_cluster"] == gn * TP_TRAIN_STEPS, c
+        assert c["vq_assign"] == TP_TRAIN_STEPS, c
+        raw = [tuple(x) for x in ranks[0][name]["raw"]]
+        loss = _loss_error(raw, want_raw)
+        counted = tp_state_bytes(TP_SIZE, TP_RANKS // TP_SIZE, fsdp)
+        measured = [sum(x[name]["state"].values()) for x in ranks]
+        rates = [v["samples_per_sec"] for _, v in raw[1:-1]] or [raw[-1][1]["samples_per_sec"]]
+        print(f"  training {name} (bf16 flagship, global batch {TP_TRAIN_BATCH}, "
+              f"{TP_TRAIN_STEPS} steps, deterministic): loss error {loss:.3g} against the "
+              f"world-1 run (limit {TP_LOSS_TOL}), losses {[round(v['loss'], 5) for _, v in raw]}"
+              f" (world 1: {[round(v['loss'], 5) for _, v in want_raw]}), one codebook on every "
+              f"rank {len({x[name]['codebook'] for x in ranks}) == 1}; samples/s "
+              f"{[round(r, 4) for r in rates]} (world 1: "
+              f"{[round(v['samples_per_sec'], 4) for _, v in want_raw[1:-1]]}); wall "
+              f"{[round(x[name]['seconds'], 1) for x in ranks]} s a rank; peak device memory "
+              f"a rank {[round(x[name]['peak_gib'], 3) for x in ranks]} GiB (world 1: "
+              f"{one['one']['peak_gib']:.3f}); state bytes a rank {measured} (counted from the "
+              f"placements: {counted}, {counted / dp:.4f} of DP's {dp}); launches a rank: "
+              f"{launches}")
+        assert loss <= TP_LOSS_TOL and measured == [counted] * TP_RANKS, (name, loss, measured)
+        assert len({x[name]["codebook"] for x in ranks}) == 1, name
+        if name == "tp":
+            digests = {x[name]["whole_digest"] for x in ranks}
+            print(f"  after two more steps without deterministic algorithms, the whole leaves "
+                  f"(parameters and EMA) are the same bytes on every rank: {len(digests) == 1}")
+            assert len(digests) == 1, digests
+        log = _train_log(ranks[0][name]["out"])
+        assert [s for s, _ in log] == list(range(1, TP_TRAIN_STEPS + 1)), log
+    for name, prof in (("world 1", one["one"]["profile"]),
+                       ("tp rank 0", ranks[0]["tp"]["profile"])):
+        top = sorted(prof["ops"].items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"  one more eager train step of {name}, profiled on {smi}: wall "
+              f"{prof['wall_ms']:.1f} ms, {prof['launches']} host launch calls; the most self "
+              f"host ms: " + ", ".join(f"{k[:40]} {ms:.1f} ({c} calls)" for k, (c, ms) in top))
+    print(f"  every run's outputs gathered over gloo: the rates above time the staging of "
+          f"each activation gather through host memory between processes on one card, not "
+          f"NVLink tensor parallelism")
+    shutil.rmtree(root)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:2] == [RANK_RUN]:
         return rank_main(sys.argv[2])
+    if sys.argv[1:2] == [TP_SPEC]:
+        return tp_rank_main(sys.argv[2])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2792,6 +3133,12 @@ def main() -> int:
         print("parallel launches, all ranks: " + ", ".join(
             f"{k} {sum(c[k] for c in parallel.values())}" for k in (
                 "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
+        tensor_parallel = tensor_parallel_paths(workdir, smi, ckpt, uncond_ckpt)
+        print(f"phase 8: {time.perf_counter() - t_start:.1f} s")
+        print("tensor-parallel launches, all ranks: " + ", ".join(
+            f"{k} {sum(c[k] for c in tensor_parallel.values())}" for k in (
+                "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward",
+                "fused_resblock_stats", "fused_resblock_apply")))
     check_tickets("the data and eval paths")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 

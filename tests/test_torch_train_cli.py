@@ -195,15 +195,21 @@ def test_train_cli_refuses_a_jax_run_directory(tmp_path, files, error, match):
     ["--checkpoint-format", "orbax"],
 ])
 def test_train_clis_refuse_flags_not_ported(flag, capsys, tmp_path):
-    """--fsdp is ported; beside it, --tensor-parallel is still refused."""
-    refused, why = (("--checkpoint-format", "invalid choice") if "--checkpoint-format" in flag
-                    else ("--tensor-parallel", "not ported"))
+    """Orbax is not ported (an argparse error); --tensor-parallel 2 is, and
+    is refused without the launcher (a world of one) with the JAX
+    package's ValueError, with or without --fsdp."""
     for cli in (train_vqvae, train_diffusion):
-        with pytest.raises(SystemExit) as err:
-            cli.main(["--device", "cpu", *flag, "--output-dir", str(tmp_path), "tones"])
-        assert err.value.code == 2
-        message = capsys.readouterr().err.splitlines()[-1]
-        assert refused in message and why in message, message
+        argv = ["--device", "cpu", *flag, "--output-dir", str(tmp_path), "tones"]
+        if "--checkpoint-format" in flag:
+            with pytest.raises(SystemExit) as err:
+                cli.main(argv)
+            assert err.value.code == 2
+            message = capsys.readouterr().err.splitlines()[-1]
+            assert "--checkpoint-format" in message and "invalid choice" in message, message
+        else:
+            with pytest.raises(ValueError, match="--tensor-parallel 2 needs a launched world "
+                                                 "that 2 divides .* got a world of 1"):
+                cli.main(argv)
     assert not os.listdir(tmp_path)
 
 

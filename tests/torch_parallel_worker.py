@@ -1,4 +1,5 @@
-"""Ranks of a gloo process group on the CPU for tests/test_torch_parallel.py.
+"""Ranks of a gloo process group on the CPU for tests/test_torch_parallel.py
+and tests/test_torch_tensor_parallel.py.
 
 ``run_group(world, task, *args)`` spawns ``world`` processes, each of which
 sets the launcher's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -14,24 +15,29 @@ for JAX.
 
 import functools
 import os
+import pickle
 import queue
 import shutil
 import socket
+import tempfile
 import time
 import traceback
 import types
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from vq_voice_swap_torch.data import ChunkWriter
 from vq_voice_swap_torch.data.datasets import ToneDataset
 from vq_voice_swap_torch.data.loader import DataLoader
 from vq_voice_swap_torch.model_base import ModelBase
 from vq_voice_swap_torch.models.unet import UNetEncoder, UNetPredictor
-from vq_voice_swap_torch.parallel import (GradBuffer, StepSync, full_tensor, init_distributed,
-                                          shard_model_fsdp, shard_optimizer_like,
-                                          shard_params_like)
+from vq_voice_swap_torch.diffusion_model import DiffusionModel
+from vq_voice_swap_torch.parallel import (GradBuffer, StepSync, cut_axes, data_rank, data_size,
+                                          full_tensor_tp, init_distributed, init_grid,
+                                          shard_model_fsdp, shard_model_tp, shard_optimizer_like,
+                                          shard_params_like, shard_train_state)
 from vq_voice_swap_torch.parallel.dist import local_tensor
 from vq_voice_swap_torch.train import (EMA, TrainStep, VQUpdateRule, VQVAETrainLoop,
                                        build_optimizer, loops)
@@ -81,8 +87,10 @@ def vq_train_step(model, opt, emas, micro_remainder: int, revive: bool = True,
 OPT = dict(lr=1e-3, lr_final=5e-4, lr_anneal_steps=2, grad_clip=0.5)
 
 
-def _numpy(t: torch.Tensor) -> np.ndarray:
-    return full_tensor(t).detach().cpu().numpy().copy()
+def _numpy(t: torch.Tensor, axis=None) -> np.ndarray:
+    """``t`` whole (an FSDP shard gathered; a model shard cut along
+    ``axis`` gathered over the model group)."""
+    return full_tensor_tp(t, axis).cpu().numpy().copy()
 
 
 # ---------------------------------------------------------------- tasks
@@ -123,10 +131,11 @@ def _steps(rank, world, state, batch, steps, fsdp, remat=False):
 
 
 def record_steps(step: TrainStep, ema: EMA, batch: Dict[str, np.ndarray],
-                 steps: int) -> Dict[str, Any]:
+                 steps: int, axes: Dict[str, int] = {}) -> Dict[str, Any]:
     """Run ``steps`` steps of ``step`` on ``batch``, step i drawing from
     its (seed 0, i) generator: each step's metrics, the first step's
-    gradients, and the final parameters, EMA and usage counts, whole."""
+    gradients, and the final parameters, EMA and usage counts, whole
+    (``axes``: the model shards' axes by name)."""
     model = step.model
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     batch["label"] = batch["label"].long()
@@ -137,10 +146,10 @@ def record_steps(step: TrainStep, ema: EMA, batch: Dict[str, np.ndarray],
                                "mses": m["mses"].numpy(), "ts": m["ts"].numpy(),
                                "codebook_used": int(m["codebook_used"])})
         if i == 0:
-            out["grads"] = {n: _numpy(p.grad) for n, p in model.named_parameters()
+            out["grads"] = {n: _numpy(p.grad, axes.get(n)) for n, p in model.named_parameters()
                             if p.grad is not None}
-    out["params"] = {n: _numpy(p) for n, p in model.named_parameters()}
-    out["ema"] = {n: _numpy(p) for n, p in ema.model.named_parameters()}
+    out["params"] = {n: _numpy(p, axes.get(n)) for n, p in model.named_parameters()}
+    out["ema"] = {n: _numpy(p, axes.get(n)) for n, p in ema.model.named_parameters()}
     out["usage"] = model.vq.usage_count.numpy().copy()
     return out
 
@@ -207,14 +216,14 @@ def loop_runs(rank: int, world: int, root: str, runs: List[List[str]],
         dist.barrier()
 
 
-def six_loops(rank: int, world: int, root: str) -> None:
-    """One step of each of the six train loops at base 2 with --fsdp and
-    --checkpoint-format dcp (the VQ-VAE they start from with npz)."""
+def six_loops(rank: int, world: int, root: str, flags: Tuple[str, ...] = ("--fsdp",)) -> None:
+    """One step of each of the six train loops at base 2 with ``flags``
+    and --checkpoint-format dcp (the VQ-VAE they start from with npz)."""
     from vq_voice_swap_torch import (train_classifier, train_diffusion, train_enc_pred,
                                      train_vqvae, train_vqvae_add, train_vqvae_uncond)
 
     base = ["--device", "cpu", "--batch-size", "1", "--max-steps", "1", "--save-interval", "1",
-            "--fsdp"]
+            *flags]
     vqvae = os.path.join(root, "vqvae", "model.npz")
     runs = [
         (train_vqvae, ["--base-channels", "2", "--class-cond", "--dictionary-size", "8"],
@@ -238,14 +247,201 @@ def six_loops(rank: int, world: int, root: str) -> None:
         cli.main(base + argv + ["--output-dir", os.path.join(root, name), "tones"])
 
 
+# ------------------------------------------------------ tensor parallelism
+
+CPU = torch.device("cpu")
+
+
+def tp_suite(rank: int, world: int, parts: List[List[Any]]) -> List[Any]:
+    """Run several tasks of this module in one spawned world, in order:
+    ``parts`` is [[task name, *args], ...]; returns their results."""
+    out = []
+    for task, *args in parts:
+        out.append(globals()[task](rank, world, *args))
+        init_grid(1)
+    return out
+
+
+def tp_predictor(kind: str) -> torch.nn.Module:
+    """The predictors of the forward checks: a shallow UNet (cond and
+    labels) or a WaveGrad at base 4 (labels, cond_mult 2)."""
+    from vq_voice_swap_torch.models.wavegrad import WaveGradPredictor
+
+    if kind == "unet":
+        return UNetPredictor(base_channels=BASE, middle_dilations=(4,), cond_channels=2 * BASE,
+                             num_labels=LABELS, **SHALLOW)
+    return WaveGradPredictor(base_channels=BASE, cond_mult=2, num_labels=LABELS)
+
+
+def tp_forwards(rank: int, world: int, model_sizes: List[int],
+                states: Dict[str, Dict[str, np.ndarray]],
+                inputs: Dict[str, Dict[str, np.ndarray]]) -> Dict[int, Dict[str, np.ndarray]]:
+    """{T: {kind: the predictor's output}} with its weights cut over model
+    groups of T ranks (``states`` and ``inputs`` by kind)."""
+    out = {}
+    for size in model_sizes:
+        init_grid(size, CPU)
+        out[size] = {}
+        for kind, state in states.items():
+            model = tp_predictor(kind)
+            model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+            shard_model_tp(model)
+            with torch.no_grad():
+                out[size][kind] = model(**{k: torch.from_numpy(v) for k, v in
+                                           inputs[kind].items()}).numpy()
+    return out
+
+
+def place_tp(model, emas, opt, fsdp: bool):
+    """``shard_train_state`` on the grid with the optimizer's gradient
+    buffer, as the train loop places a run."""
+    names = [n for n, _ in model.named_parameters()]
+    opt = shard_train_state(model, emas, opt, names, fsdp)
+    cut = cut_axes(model)
+    opt.grad_buffer = GradBuffer(opt.params, [n in cut for n in names])
+    return opt
+
+
+def tp_steps(rank: int, world: int, model_size: int, state: Dict[str, np.ndarray],
+             batch: Dict[str, np.ndarray], steps: int) -> List[Dict[str, Any]]:
+    """``steps`` train steps on a grid of ``model_size`` columns, this data
+    row's rows (``d::D``) of the global batch, microbatch chunks 2 + 1 a
+    data row, one EMA: without and then with FSDP over the data rows."""
+    init_grid(model_size, CPU)
+    out = []
+    for fsdp in (False, True):
+        model = tiny_vqvae()
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        ema = EMA(model, 0.9)
+        opt = place_tp(model, [ema], build_optimizer(model, **OPT), fsdp)
+        step = vq_train_step(model, opt, [ema], micro_remainder=1, sync=StepSync(opt.grad_buffer))
+        rows = {k: v[data_rank()::data_size()] for k, v in batch.items()}
+        axes = cut_axes(model)
+        res = record_steps(step, ema, rows, steps, axes)
+        res["cut"] = sorted(axes)
+        res["local_numel"] = sum(local_tensor(p).numel() for p in model.parameters())
+        out.append(res)
+    return out
+
+
+def tp_whole_agree(rank: int, world: int, model_size: int, state: Dict[str, np.ndarray],
+                   batch: Dict[str, np.ndarray]) -> List[Dict[str, Dict[str, np.ndarray]]]:
+    """One train step on a grid of ``model_size`` columns whose ranks'
+    gradients differ before the reduction (each rank adds its own noise,
+    as a backward's atomic sums round differently on the card), without
+    and then with FSDP: the whole leaves' parameters and EMA copies after
+    it, gathered over the data group."""
+    init_grid(model_size, CPU)
+    out = []
+    for fsdp in (False, True):
+        model = tiny_vqvae()
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        ema = EMA(model, 0.9)
+        opt = place_tp(model, [ema], build_optimizer(model, **OPT), fsdp)
+        buf, reduce = opt.grad_buffer, opt.grad_buffer.all_reduce
+        noise = torch.Generator().manual_seed(rank)
+
+        def noisy_reduce():
+            for p in model.parameters():
+                if p.grad is not None:
+                    g = local_tensor(p.grad)
+                    g.add_(1e-4 * g.abs().max() * torch.randn(g.shape, generator=noise))
+            reduce()
+
+        buf.all_reduce = noisy_reduce
+        step = vq_train_step(model, opt, [ema], micro_remainder=1, sync=StepSync(buf))
+        rows = {k: v[data_rank()::data_size()] for k, v in batch.items()}
+        res = record_steps(step, ema, rows, 1)
+        cut = cut_axes(model)
+        out.append({k: {n: v for n, v in res[k].items() if n not in cut}
+                    for k in ("params", "ema")})
+    return out
+
+
+def tp_jax_step(rank: int, world: int, model_size: int, state: Dict[str, np.ndarray],
+                batch: Dict[str, np.ndarray], draws: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """One step on a grid of ``model_size`` columns on given global draws
+    (each data row keeps its rows), no microbatches and no revival: the
+    step's loss, and the parameters and AdamW first moments after it,
+    whole."""
+    init_grid(model_size, CPU)
+    model = tiny_vqvae()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    opt = place_tp(model, [], build_optimizer(model, lr=1e-3), False)
+    step = vq_train_step(model, opt, [], micro_remainder=0, revive=False,
+                         sync=StepSync(opt.grad_buffer))
+    rows = slice(data_rank(), None, data_size())
+    local = {k: torch.from_numpy(v[rows]) for k, v in batch.items()}
+    local["label"] = local["label"].long()
+    mine = {k: torch.from_numpy(v[rows]) for k, v in draws.items()}
+    loss = step(local, None, draws=[mine])["loss"].item()
+    axes = cut_axes(model)
+    named = list(model.named_parameters())
+    return dict(loss=loss, params={n: _numpy(p, axes.get(n)) for n, p in named},
+                exp_avg={n: _numpy(opt.adamw.state[p]["exp_avg"], axes.get(n))
+                         for n, p in named})
+
+
+def tp_refusal(rank: int, world: int, model_size: int) -> str:
+    """The ValueError of a grid of ``model_size`` columns."""
+    try:
+        init_grid(model_size, CPU)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def tiny_diffusion(fuse_levels: int = 0) -> DiffusionModel:
+    """An unconditional diffusion model of the shallow UNet at base 4."""
+    model = DiffusionModel(pred_name="unet", base_channels=BASE)
+    model.predictor = UNetPredictor(base_channels=BASE, middle_dilations=(4,),
+                                    fuse_levels=fuse_levels, **SHALLOW)
+    return model
+
+
+def tiny_from_manifest(cls, name, kwargs):
+    """``ModelBase.from_manifest`` for the shallow test models' checkpoints."""
+    if name == "VQVAE":
+        return tiny_vqvae()
+    return tiny_diffusion(kwargs.get("fuse_levels", 0))
+
+
+class RecordingWriter(ChunkWriter):
+    """A ChunkWriter that also saves the float samples it writes, as
+    ``<path>.npy`` (``path`` less sample_diffusion's ``.tmp.wav``)."""
+
+    def write(self, samples):
+        np.save(self.path.removesuffix(".tmp.wav") + ".npy", np.asarray(samples, np.float32))
+        return super().write(samples)
+
+
+def sampling_runs(rank: int, world: int, runs: List[List[Any]]) -> None:
+    """Each [sampling CLI module name, argv] through its main on the CPU,
+    its files written through RecordingWriter and its checkpoints read as
+    the shallow test models."""
+    import importlib
+
+    saved = ModelBase.__dict__["from_manifest"]
+    ModelBase.from_manifest = classmethod(tiny_from_manifest)
+    try:
+        for name, argv in runs:
+            module = importlib.import_module(f"vq_voice_swap_torch.{name}")
+            module.ChunkWriter = RecordingWriter
+            module.main(["--device", "cpu", *argv])
+    finally:
+        ModelBase.from_manifest = saved
+
+
 # ---------------------------------------------------------------- spawning
 
 
-def _entry(rank: int, world: int, port: int, task: str, args: tuple, results) -> None:
+def _entry(rank: int, world: int, port: int, task: str, args_path: str, results) -> None:
     try:
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                           MASTER_ADDR="localhost", MASTER_PORT=str(port))
         torch.set_num_threads(1)
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         init_distributed("cpu", timeout_s=120)
         results.put((rank, "ok", globals()[task](rank, world, *args)))
     except BaseException:
@@ -255,13 +451,19 @@ def _entry(rank: int, world: int, port: int, task: str, args: tuple, results) ->
 
 def run_group(world: int, task: str, *args, timeout: float = 240.0) -> List[Any]:
     """Run ``task`` on ``world`` spawned gloo ranks; the results in rank
-    order. Raises on any rank's error, or after ``timeout`` seconds."""
+    order. Raises on any rank's error, or after ``timeout`` seconds.
+    ``args`` reach the ranks through a file: sent with each process, they
+    would hold its start until the one before had imported this module."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_entry, args=(r, world, port, task, args, results))
+    tmp = tempfile.mkdtemp()
+    args_path = os.path.join(tmp, "args.pkl")
+    with open(args_path, "wb") as f:
+        pickle.dump(args, f)
+    procs = [ctx.Process(target=_entry, args=(r, world, port, task, args_path, results))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -289,4 +491,5 @@ def run_group(world: int, task: str, *args, timeout: float = 240.0) -> List[Any]
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
+        shutil.rmtree(tmp)
     return [got[r] for r in range(world)]

@@ -116,7 +116,7 @@ class Classifier(nn.Module):
         return self.stem(x, ts)
 
     def head_from_features(self, features: torch.Tensor) -> torch.Tensor:
-        return self.head(gelu(features))
+        return linear(gelu(features), self.head)
 
     def forward(self, x: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
         return self.head_from_features(self.features(x, ts))

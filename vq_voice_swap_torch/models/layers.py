@@ -12,6 +12,11 @@ A ResBlock's ``remat`` policy (the counterpart of the JAX package's
 a training backward: "full" saves the block's inputs alone and reruns the
 block; "convs" also saves ``conv_in``'s output and reruns only the norm,
 GELU and FiLM chains, never a convolution.
+
+Under tensor parallelism (``parallel/tensor.py``) the funnels ``conv1d``
+and ``linear`` run a layer whose weight was cut over the model group
+column-parallel, and ``GroupNorm`` and ``embedding`` gather their cut
+leaves whole at use; a model that was not cut runs as before.
 """
 
 import math
@@ -27,12 +32,14 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.group_norm import group_norm
+from ..parallel.tensor import column_parallel, cut_axis, whole
 
 __all__ = [
     "gelu",
     "adaptive_group_count",
     "channels_first",
     "conv1d",
+    "embedding",
     "linear",
     "Conv1d",
     "GroupNorm",
@@ -68,17 +75,35 @@ def channels_first(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
-    """Run ``conv`` on [N, C, T] in x's dtype."""
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv1d(
-        x, conv.weight.to(x.dtype), bias, stride=conv.stride,
-        padding=conv.padding, dilation=conv.dilation,
-    )
+    """Run ``conv`` on [N, C, T] in x's dtype (column-parallel when its
+    weight was cut over the model group)."""
+    def run(x):
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        return F.conv1d(
+            x, conv.weight.to(x.dtype), bias, stride=conv.stride,
+            padding=conv.padding, dilation=conv.dilation,
+        )
+
+    if cut_axis(conv, "weight") is not None:
+        return column_parallel(run, x, 1)
+    return run(x)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """Run ``lin`` in x's dtype."""
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+    """Run ``lin`` in x's dtype (column-parallel when its weight was cut
+    over the model group)."""
+    def run(x):
+        return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+    if cut_axis(lin, "weight") is not None:
+        return column_parallel(run, x, -1)
+    return run(x)
+
+
+def embedding(labels: torch.Tensor, table: nn.Embedding) -> torch.Tensor:
+    """Look ``labels`` up in ``table`` (its columns gathered whole at use
+    when they were cut over the model group)."""
+    return F.embedding(labels, whole(table, "weight"))
 
 
 class Conv1d(nn.Module):
@@ -123,7 +148,7 @@ class GroupNorm(nn.Module):
         film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
         return group_norm(
-            x, self.norm.weight, self.norm.bias, self.norm.num_groups,
+            x, whole(self.norm, "weight"), whole(self.norm, "bias"), self.norm.num_groups,
             self.norm.eps, self.use_gelu, film,
         )
 

@@ -30,6 +30,7 @@ from .layers import (
     TimeEmbedding,
     adaptive_group_count,
     channels_first,
+    embedding,
     gelu,
     linear,
     nearest_resize_1d,
@@ -176,7 +177,7 @@ class UNetPredictor(nn.Module):
 
         emb = linear(gelu(self.time_embed(ts, dtype)), self.time_embed_extra)
         if labels is not None:
-            emb = emb + self.class_embed(labels).to(dtype)
+            emb = emb + embedding(labels, self.class_embed).to(dtype)
 
         h = self.in_conv(channels_first(x, dtype))
         if cond is not None:

@@ -19,8 +19,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (Conv1d, Dropout, TimeEmbedding, avg_pool_1d, channels_first, gelu,
-                     nearest_upsample_1d)
+from ..parallel.tensor import whole
+from .layers import (Conv1d, Dropout, TimeEmbedding, avg_pool_1d, channels_first, embedding,
+                     gelu, nearest_upsample_1d)
 
 __all__ = ["ChannelLayerNorm", "FiLM", "UBlock", "DBlock", "WaveGradPredictor",
            "WaveGradEncoder"]
@@ -35,8 +36,8 @@ class ChannelLayerNorm(nn.LayerNorm):
         super().__init__(channels, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float().transpose(1, 2), self.normalized_shape, self.weight,
-                         self.bias, self.eps)
+        y = F.layer_norm(x.float().transpose(1, 2), self.normalized_shape,
+                         whole(self, "weight"), whole(self, "bias"), self.eps)
         return y.transpose(1, 2).to(x.dtype, memory_format=torch.contiguous_format)
 
 
@@ -62,7 +63,7 @@ class FiLM(nn.Module):
             raise ValueError("pass labels iff the FiLM was built with num_labels")
         emb = self.time_emb(ts, inputs.dtype)
         if labels is not None:
-            emb = emb + self.label_emb(labels).to(inputs.dtype)
+            emb = emb + embedding(labels, self.label_emb).to(inputs.dtype)
         emb = emb[:, :, None] + self.cond_conv(self.cond_norm(cond))
         alpha, beta = self.out_conv(gelu(emb)).chunk(2, dim=1)
         return inputs * (1.0 + alpha) + beta

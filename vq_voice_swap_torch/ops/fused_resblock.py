@@ -31,7 +31,11 @@ it, when the concat boundary falls on a GroupNorm-1 group edge.
 
 ``fused_resblock`` takes the plain version for CPU tensors and launches
 both kernels for CUDA tensors, with no fallback between them; each kernel
-counts its launches. Unlike the TPU path there is no gate on T, on the
+counts its launches. The pair takes whole weights: under tensor
+parallelism (``parallel/tensor.py``) a block's leaves that were cut over
+the model group are gathered whole for the call, and the pair runs the
+whole block on every rank of the group (storage sharding for these
+blocks, not split work). Unlike the TPU path there is no gate on T, on the
 channel count or on a tile that divides T: the kernels mask the ragged
 last tile.
 """
@@ -43,6 +47,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.tensor import TP_AXES, gathered
 from .cuda_build import load_library
 from .group_norm import (
     fold_affine,
@@ -295,14 +300,22 @@ def fused_resblock(
     tensors, the two kernels for CUDA tensors. The pair has no backward:
     with grad enabled, an input or a parameter that requires grad raises,
     on either device, rather than taking a path autograd could run through."""
-    xs = _inputs(block, x, emb, x2)
+    _inputs(block, x, emb, x2)
     if torch.is_grad_enabled() and any(
             v is not None and v.requires_grad for v in (x, emb, x2, *block.parameters())):
         raise RuntimeError("the fused ResBlock has no backward: run gradients through "
                            "the unfused block (load with fuse_levels=0), or call it "
                            "under torch.no_grad()")
+    if any(TP_AXES in m.__dict__ for m in block.modules()):
+        with gathered(block):
+            return _fused_resblock(block, x, emb, x2)
+    return _fused_resblock(block, x, emb, x2)
+
+
+def _fused_resblock(block, x, emb, x2) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_resblock_plain(block, x, emb, x2)
+    xs = (x,) if x2 is None else (x, x2)
     dtype = x.dtype
     norm1 = _norm_in_affine(block, xs, group_norm_coeffs)
     conv_in = _conv_weight(block.conv_in, dtype)

@@ -17,38 +17,46 @@ global batch. Outside a forward a sharded parameter is a ``DTensor``;
 tensor to this rank's shard of one; ``shard_params_like`` and
 ``shard_optimizer_like`` place an EMA's copy and the optimizer's moments
 as the model's parameters are placed.
+
+With tensor parallelism (``parallel/tensor.py``) the placement is the JAX
+package's on a (data, model) mesh: the model axis takes a leaf's output
+features first (``tp_placements``), FSDP then the largest of its other
+axes that the data size divides; ``fully_shard`` runs over the data
+group's mesh on the model shards.
 """
 
-from typing import Any, Dict, Optional, Sequence, Set
+from typing import Any, Callable, Dict, Optional, Sequence, Set
 
 import torch
 import torch.distributed as dist
 from torch import nn
 from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Shard, init_device_mesh
 
-__all__ = ["fsdp_placements", "full_tensor", "shard_like", "shard_model_fsdp",
-           "shard_optimizer_like", "shard_params_like"]
+from .dist import data_size, grid
+from .tensor import _jax_axes, shard_like_tp, shard_model_tp, tp_placements
+
+__all__ = ["fsdp_placements", "full_tensor", "rebuild_optimizer", "shard_like",
+           "shard_model_fsdp", "shard_optimizer_like", "shard_params_like",
+           "shard_train_state"]
 
 
-def _jax_axes(module: nn.Module, leaf: str, ndim: int):
-    """The port's axes of a parameter in the JAX layout's order."""
-    axes = list(range(ndim))
-    if leaf == "weight" and isinstance(module, (nn.Conv1d, nn.Linear)):
-        axes.reverse()  # flax kernels: (K, C_in, C_out) and (in, out)
-    return axes
-
-
-def fsdp_placements(model: nn.Module, world: int) -> Dict[str, Optional[int]]:
+def fsdp_placements(model: nn.Module, world: int,
+                    tensor_parallel: int = 1) -> Dict[str, Optional[int]]:
     """{parameter name: the axis it is sharded along, or None (kept
-    whole)} at data size ``world``, by the JAX package's rule."""
+    whole)} at data size ``world``, by the JAX package's rule; with a
+    model size ``tensor_parallel`` > 1, among the axes that the model axis
+    leaves (``model`` is whole here)."""
+    model_axes = tp_placements(model, tensor_parallel)
     out = {}
     for mod_name, module in model.named_modules():
         for leaf, p in module.named_parameters(recurse=False):
             name = f"{mod_name}.{leaf}" if mod_name else leaf
             axis = None
             if "dictionary" not in leaf:
-                candidates = [a for a in _jax_axes(module, leaf, p.ndim) if p.shape[a] % world == 0]
+                candidates = [a for a in _jax_axes(module, leaf, p.ndim)
+                              if a != model_axes[name] and p.shape[a] % world == 0]
                 if candidates:
                     axis = max(candidates, key=lambda a: p.shape[a])
             out[name] = axis
@@ -65,15 +73,21 @@ def _blocks(model: nn.Module):
     return blocks
 
 
-def shard_model_fsdp(model: nn.Module, world: int) -> Set[nn.Parameter]:
-    """Shard ``model`` (on this rank's device) over the default process
-    group's ``world`` ranks in place; returns the parameters kept whole."""
-    placements = fsdp_placements(model, world)
+def shard_model_fsdp(model: nn.Module, world: int,
+                     placements: Optional[Dict[str, Optional[int]]] = None,
+                     mesh: Optional[DeviceMesh] = None) -> Set[nn.Parameter]:
+    """Shard ``model`` (on this rank's device) over ``mesh``'s ``world``
+    ranks in place, by ``placements`` (default: the default process group
+    and ``fsdp_placements`` at ``world``); returns the parameters kept
+    whole."""
+    if placements is None:
+        placements = fsdp_placements(model, world)
     params = dict(model.named_parameters())
     axis_of = {p: placements[n] for n, p in params.items()}
     ignored = {p for p, a in axis_of.items() if a is None}
     device = next(iter(params.values())).device
-    mesh = init_device_mesh(device.type, (world,))
+    if mesh is None:
+        mesh = init_device_mesh(device.type, (world,))
     units = _blocks(model) + [model]
     for unit in units:
         fully_shard(unit, mesh=mesh, shard_placement_fn=lambda p: Shard(axis_of[p]),
@@ -125,16 +139,50 @@ def shard_params_like(copy: nn.Module, model: nn.Module) -> None:
 
 
 @torch.no_grad()
-def shard_optimizer_like(opt: Any, params: Sequence[torch.Tensor]) -> Any:
+def rebuild_optimizer(opt: Any, params: Sequence[torch.Tensor],
+                      cut: Callable[[torch.Tensor, int], torch.Tensor]) -> Any:
     """``opt`` (a ``train.state.Optimizer``) over ``params``, its own
-    parameters in order as the sharded model now holds them: the same
-    settings, count and moments, each moment cut to its parameter's
-    shard."""
+    parameters in order as a sharded model now holds them: the same
+    settings, count and moments, each moment of parameter i through
+    ``cut(moment, i)``."""
     new = type(opt)(params, opt.lr, opt.weight_decay, opt.lr_final, opt.lr_anneal_steps,
                     opt.grad_clip)
     new.count = opt.count
-    for old, p in zip(opt.params, new.params):
+    for i, (old, p) in enumerate(zip(opt.params, new.params)):
         state = opt.adamw.state.get(old)
         if state:
-            new.adamw.state[p] = {k: shard_like(v, p) if v.ndim else v for k, v in state.items()}
+            new.adamw.state[p] = {k: cut(v, i) if v.ndim else v for k, v in state.items()}
     return new
+
+
+def shard_optimizer_like(opt: Any, params: Sequence[torch.Tensor]) -> Any:
+    """``opt`` over FSDP's ``params``, each moment cut to its parameter's
+    shard (``rebuild_optimizer``)."""
+    return rebuild_optimizer(opt, params, lambda v, i: shard_like(v, params[i]))
+
+
+def shard_train_state(model: nn.Module, emas: Sequence[Any], opt: Any, names: Sequence[str],
+                      fsdp: bool) -> Any:
+    """Place a run's whole state (``model``, its ``emas`` and ``opt``, a
+    ``train.state.Optimizer`` whose parameters are ``model``'s ``names``)
+    on this rank: on the grid (``dist.init_grid``), cut over the model
+    group (``parallel/tensor.py``; ``tensor.cut_axes`` reads the cut back);
+    with ``fsdp``, then sharded over the data group. Returns the optimizer
+    over the placed parameters."""
+    g = grid()
+    model_size = 1 if g is None else g.model_size
+    data_axes = fsdp_placements(model, data_size(), model_size) if fsdp else None
+    if g is not None:
+        placements = tp_placements(model, model_size)
+        cut = shard_model_tp(model, placements)
+        for ema in emas:
+            shard_model_tp(ema.model, placements)
+        axes = [cut.get(n) for n in names]
+        opt = rebuild_optimizer(opt, [model.get_parameter(n) for n in names],
+                                lambda v, i: shard_like_tp(v, axes[i]))
+    if fsdp:
+        shard_model_fsdp(model, data_size(), data_axes, None if g is None else g.mesh["data"])
+        for ema in emas:
+            shard_params_like(ema.model, model)
+        opt = shard_optimizer_like(opt, [model.get_parameter(n) for n in names])
+    return opt

@@ -15,7 +15,20 @@ scaled by --classifier-scale; an unconditional model then samples its
 classes from the classifier's labels. Runs on CUDA unless --device names
 another device.
 
-int8 activations (--act-int8) and --tensor-parallel are not ported yet.
+Launched by ``torchrun`` (``python -m torch.distributed.run
+--nproc-per-node N -m vq_voice_swap_torch.sample_diffusion ...``), the
+ranks form N / T data rows of ``--tensor-parallel T`` model columns
+(``parallel/tensor.py`` cuts the model's weights over each row's T
+ranks). Every rank draws a batch's x_T, labels and noise as the
+one-process run does; where the data rows divide the batch, each predictor
+(and classifier) call runs on its data row's rows (row d + D*j of D) and
+the results are gathered over the data rows, else every row runs the
+whole batch. Rank 0 writes the one-process run's files, so which batches
+are complete and skipped is what rank 0 finds, broadcast to every rank (a
+rank on another host need not see the directory). The classifier stays
+whole.
+
+int8 activations (--act-int8) are not ported yet.
 
 Example:
     python -m vq_voice_swap_torch.sample_diffusion --checkpoint-path model.npz \\
@@ -35,7 +48,8 @@ from .classifier_model import ClassifierModel
 from .data import ChunkWriter
 from .diffusion import make_warp
 from .diffusion_model import DiffusionModel
-from .util import resolve_device
+from .parallel import (broadcast_from_primary, data_rank, data_size, gather_data_rows,
+                       init_distributed, init_grid, is_primary, shard_model_tp)
 
 SAMPLE_LEN = 64000
 SAMPLE_RATE = 16000
@@ -73,12 +87,24 @@ def sample_batch(args, model: DiffusionModel, warp, batch: int, batch_index: int
             labels = torch.randint(0, classes, (batch,), generator=gen_labels,
                                    device=device)
     model_labels = labels if model.num_labels is not None else None
+    rows = slice(None)
+    if data_size() > 1 and batch % data_size() == 0:
+        rows = slice(data_rank(), None, data_size())
+
+    def on_rows(fn):
+        """fn(x, ts) of the batch, run on this data row's rows and gathered."""
+        if rows == slice(None):
+            return fn
+        return lambda x, ts: gather_data_rows(fn(x[rows], ts[rows]))
+
     cond_fn = None
     if classifier is not None:
-        cond_fn = classifier.cond_fn(labels, args.classifier_scale)
+        cond_fn = on_rows(classifier.cond_fn(labels[rows], args.classifier_scale))
 
+    @on_rows
     def pred(xs, ts):
-        return model.predict_eps(xs, ts, labels=model_labels)
+        return model.predict_eps(xs, ts,
+                                 labels=None if model_labels is None else model_labels[rows])
 
     diffusion = model.diffusion
     kw = dict(constrain=args.constrain, warp=warp, cond_fn=cond_fn)
@@ -105,11 +131,14 @@ def write_wav(path: str, samples: np.ndarray, encoding: str) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = arg_parser().parse_args(argv)
     warp = make_warp(args.schedule)
-    device = resolve_device(args.device)
+    device = init_distributed(args.device)
+    init_grid(args.tensor_parallel, device)
     model = DiffusionModel.load(
         args.checkpoint_path, dtype="bfloat16" if args.bf16 else None,
         device=device, fuse_levels=args.fuse_levels,
     )
+    if args.tensor_parallel > 1:
+        shard_model_tp(model)
     classifier = None
     if args.classifier_path:
         classifier = ClassifierModel.load(args.classifier_path, device=device)
@@ -124,23 +153,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     if args.num_samples is None:
         sample = sample_batch(args, model, warp, 1, 0, device, classifier)
-        write_wav(args.sample_path, sample[0, :, 0].cpu().numpy(), args.encoding)
-        print(f"wrote {args.sample_path}")
+        if is_primary():
+            write_wav(args.sample_path, sample[0, :, 0].cpu().numpy(), args.encoding)
+            print(f"wrote {args.sample_path}")
         return
 
-    os.makedirs(args.sample_path, exist_ok=True)
+    if is_primary():
+        os.makedirs(args.sample_path, exist_ok=True)
     num_batches = int(math.ceil(args.num_samples / args.batch_size))
+    paths = [[os.path.join(args.sample_path, f"sample_{c:06}.wav")
+              for c in range(lo, min(lo + args.batch_size, args.num_samples))]
+             for lo in range(0, args.num_samples, args.batch_size)]
+    complete = torch.tensor([all(os.path.exists(p) for p in batch_paths)
+                             for batch_paths in paths])
+    broadcast_from_primary([complete])
+    complete = complete.tolist()
     for i in range(num_batches):
-        lo = i * args.batch_size
-        hi = min(lo + args.batch_size, args.num_samples)
-        paths = [os.path.join(args.sample_path, f"sample_{c:06}.wav")
-                 for c in range(lo, hi)]
-        if all(os.path.exists(p) for p in paths):
+        if complete[i]:
             continue
         samples = sample_batch(args, model, warp, args.batch_size, i, device, classifier)
-        for seq, path in zip(samples.cpu().numpy(), paths):
-            write_wav(path, seq[:, 0], args.encoding)
-        print(f"generated {hi}/{args.num_samples}")
+        if is_primary():
+            for seq, path in zip(samples.cpu().numpy(), paths[i]):
+                write_wav(path, seq[:, 0], args.encoding)
+            print(f"generated {i * args.batch_size + len(paths[i])}/{args.num_samples}")
 
 
 def arg_parser() -> argparse.ArgumentParser:
@@ -174,8 +209,13 @@ def arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fuse-levels", default=0, type=int,
                         help="run the same-resolution ResBlocks of the UNet's first "
                              "K levels through the fused ResBlock kernels")
+    parser.add_argument("--tensor-parallel", type=int, default=1,
+                        help="model-axis size of a 2-D data x model grid of the ranks of "
+                             "a launched run; weights shard on their output-feature axis "
+                             "(the world size must be divisible)")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on; never falls back")
+                        help="torch device to run on (cuda:LOCAL_RANK under torchrun); "
+                             "never falls back")
     return parser
 
 

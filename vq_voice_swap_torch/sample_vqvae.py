@@ -9,6 +9,12 @@ optionally reports how many codes survive a re-encode (--check-vq).
 scaled by --enc-pred-scale. Runs on CUDA unless --device names another
 device.
 
+Launched by ``torchrun`` (``python -m torch.distributed.run
+--nproc-per-node N -m vq_voice_swap_torch.sample_vqvae ...``),
+``--tensor-parallel T`` cuts the model's weights over groups of T ranks
+(``parallel/tensor.py``); the one clip is converted on every data row and
+rank 0 alone writes the output. The encoder predictor stays whole.
+
 Example:
     python -m vq_voice_swap_torch.sample_vqvae --label 3 --sample-steps 10 \\
         --sampler dpmpp --enc-pred-path enc_pred.npz --input-file speech.wav \\
@@ -23,7 +29,7 @@ import torch
 
 from .classifier_model import EncoderPredictorModel
 from .data import ChunkWriter, read_audio_input
-from .util import resolve_device
+from .parallel import init_distributed, init_grid, is_primary, shard_model_tp
 from .vq_vae import VQVAE
 
 
@@ -56,12 +62,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = arg_parser().parse_args(argv)
     if args.check_vq and args.no_vq:
         raise SystemExit("--check-vq requires VQ codes; incompatible with --no-vq")
-    device = resolve_device(args.device)
+    device = init_distributed(args.device)
+    init_grid(args.tensor_parallel, device)
 
     print("loading model from checkpoint...")
     model = VQVAE.load(args.checkpoint_path, device=device)
     if model.num_labels is not None and not 0 <= args.label < model.num_labels:
         raise SystemExit(f"label {args.label} out of range [0, {model.num_labels})")
+    if args.tensor_parallel > 1:
+        shard_model_tp(model)
     enc_pred = None
     if args.enc_pred_path:
         print("loading encoder predictor...")
@@ -81,6 +90,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         agreement = (model.encode(sample) == encoded).float().mean().item()
         print(f"fraction of consistent VQ codes: {agreement}")
 
+    if not is_primary():
+        return
     out = sample.reshape(-1).cpu().numpy()
     if not np.isfinite(out).all():
         raise SystemExit("the decoder produced non-finite samples")
@@ -113,8 +124,13 @@ def arg_parser() -> argparse.ArgumentParser:
                              "DPM-Solver++(2M), second-order")
     parser.add_argument("--eta", type=float, default=0.0,
                         help="DDIM stochasticity (0 = deterministic)")
+    parser.add_argument("--tensor-parallel", type=int, default=1,
+                        help="model-axis size of a 2-D data x model grid of the ranks of "
+                             "a launched run; weights shard on their output-feature axis "
+                             "(the world size must be divisible)")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on; never falls back")
+                        help="torch device to run on (cuda:LOCAL_RANK under torchrun); "
+                             "never falls back")
     parser.add_argument("checkpoint_path", type=str)
     parser.add_argument("output_file", type=str)
     return parser

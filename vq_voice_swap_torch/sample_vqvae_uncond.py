@@ -10,7 +10,11 @@ batch, guided away from the prediction without the codes by
 label (0; speakers are offset by 1) and zeroed codes. --schedule names a
 time warp. Runs on CUDA unless --device names another device.
 
-int8 activations (--act-int8) and --tensor-parallel are not ported yet.
+Launched by ``torchrun``, ``--tensor-parallel T`` cuts the model's
+weights over groups of T ranks (``parallel/tensor.py``); the one clip is
+converted on every data row and rank 0 alone writes the output.
+
+int8 activations (--act-int8) are not ported yet.
 
 Example:
     python -m vq_voice_swap_torch.sample_vqvae_uncond --label 3 \\
@@ -26,7 +30,7 @@ import torch
 
 from .data import ChunkWriter, read_audio_input
 from .diffusion import make_warp
-from .util import resolve_device
+from .parallel import init_distributed, init_grid, is_primary, shard_model_tp
 from .vq_vae import VQVAE
 
 
@@ -36,7 +40,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     warp = make_warp(args.schedule)
     if args.check_vq and args.no_vq:
         raise SystemExit("--check-vq requires VQ codes; incompatible with --no-vq")
-    device = resolve_device(args.device)
+    device = init_distributed(args.device)
+    init_grid(args.tensor_parallel, device)
 
     print("loading model from checkpoint...")
     model = VQVAE.load(args.checkpoint_path, device=device)
@@ -44,6 +49,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if model.num_labels is None or not 0 <= args.label < model.num_labels - 1:
         raise SystemExit(f"label {args.label} out of range for a model with "
                          f"{model.num_labels} labels (the first is unconditional)")
+    if args.tensor_parallel > 1:
+        shard_model_tp(model)
 
     print(f"loading waveform from {args.input_file}...")
     chunk = read_audio_input(args.input_file, args.sample_rate, args.seconds, args.encoding)
@@ -70,6 +77,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         agreement = (model.encode(sample) == encoded).float().mean().item()
         print(f"fraction of consistent VQ codes: {agreement}")
 
+    if not is_primary():
+        return
     out = sample.reshape(-1).cpu().numpy()
     if not np.isfinite(out).all():
         raise SystemExit("the decoder produced non-finite samples")
@@ -103,8 +112,13 @@ def arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-vq", action="store_true")
     parser.add_argument("--check-vq", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--tensor-parallel", type=int, default=1,
+                        help="model-axis size of a 2-D data x model grid of the ranks of "
+                             "a launched run; weights shard on their output-feature axis "
+                             "(the world size must be divisible)")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on; never falls back")
+                        help="torch device to run on (cuda:LOCAL_RANK under torchrun); "
+                             "never falls back")
     parser.add_argument("checkpoint_path", type=str)
     parser.add_argument("output_file", type=str)
     return parser

@@ -9,13 +9,17 @@ AdamW's state of each trainable parameter (``<name>.step``,
 ``<name>.exp_avg``, ``<name>.exp_avg_sq``) and the update count
 (``count``). A save writes ``<dir>.new`` and then replaces the old
 directories. A load reads into whole tensors, so a run resumes at any
-world size, with or without FSDP (the loop shards after loading).
+world size, with or without FSDP or tensor parallelism (the loop shards
+after loading). Under tensor parallelism a rank's shards of a leaf cut
+over its model group are written as ``DTensor``s of the whole leaf on the
+(data, model) mesh (``parallel.tensor.global_tensor``), so each lands at
+its global offsets.
 """
 
 import json
 import os
 import shutil
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -23,6 +27,7 @@ import torch.distributed.checkpoint as dcp
 
 from ..model_base import ModelBase
 from ..parallel.dist import is_primary
+from ..parallel.tensor import global_tensor
 from .ema import EMA
 from .state import Optimizer
 
@@ -41,16 +46,25 @@ def _keys(path: str) -> set:
 
 
 def save_run(model_dir: str, opt_dir: str, model: ModelBase, emas: Sequence[EMA],
-             optimizer: Optimizer, names: Sequence[str]) -> None:
+             optimizer: Optimizer, names: Sequence[str],
+             tp_axes: Optional[Dict[str, int]] = None) -> None:
     """Write the model, its EMAs and the optimizer state (``names``: the
-    optimizer's parameters' names, in its order); every rank calls it."""
+    optimizer's parameters' names, in its order; ``tp_axes``: {parameter
+    name: axis} of those cut over the model group); every rank calls it."""
+    tp_axes = tp_axes or {}
+
+    def placed(name: str, t: torch.Tensor) -> torch.Tensor:
+        return global_tensor(t, tp_axes[name]) if name in tp_axes and t.ndim else t
+
     model_state: Dict[str, torch.Tensor] = {
-        f"model.{k}": v for k, v in model.state_dict().items()}
+        f"model.{k}": placed(k, v) for k, v in model.state_dict().items()}
     for ema in emas:
-        model_state.update((f"ema_{ema.rate}.{n}", p) for n, p in ema.model.named_parameters())
+        model_state.update((f"ema_{ema.rate}.{n}", placed(n, p))
+                           for n, p in ema.model.named_parameters())
     opt_state: Dict[str, torch.Tensor] = {"count": torch.tensor(optimizer.count)}
     for n, p in zip(names, optimizer.params):
-        opt_state.update((f"{n}.{k}", v) for k, v in optimizer.adamw.state.get(p, {}).items())
+        opt_state.update((f"{n}.{k}", placed(n, v))
+                         for k, v in optimizer.adamw.state.get(p, {}).items())
     for path, state in ((model_dir, model_state), (opt_dir, opt_state)):
         if is_primary() and os.path.exists(path + ".new"):
             shutil.rmtree(path + ".new")

@@ -1,9 +1,9 @@
 """Exponential moving averages of a model's parameters (counterpart of
 ``vq_voice_swap_tpu/train/ema.py``), one copy of the model per rate:
 ``ema += (1 - rate) * (p - ema)`` after every step, with 1 - rate taken in
-float32 as the JAX package takes it. Under FSDP the copy's parameters are
-shards placed as the model's (``parallel.fsdp.shard_params_like``), and
-each shard follows its own."""
+float32 as the JAX package takes it. Under FSDP or tensor parallelism the
+copy's parameters are shards placed as the model's
+(``parallel.fsdp.shard_train_state``), and each shard follows its own."""
 
 import copy
 

@@ -50,8 +50,16 @@ AdamW moments sharded over the ranks (FSDP2); its steps run eagerly, also
 in --steps-per-dispatch windows. ``--checkpoint-format dcp`` writes
 ``model.dcp/`` and ``opt.dcp/`` with ``torch.distributed.checkpoint``,
 every rank its own shards (``train/dcp.py``); npz saves gather the state
-first. Without the launcher's environment a loop is the single-device
-loop. Not ported: tensor parallelism; the CLIs refuse it.
+first. ``--tensor-parallel T`` lays the N ranks out as N / T data rows of
+T model columns (``parallel.dist.init_grid``): each data row reads its
+shard of every epoch at ``--batch-size``, and its T ranks hold the
+parameters, EMAs and AdamW moments cut along their output features
+(``parallel/tensor.py``) and compute the same rows together; with
+``--fsdp`` the data group shards those shards further. Its steps run
+eagerly, also in --steps-per-dispatch windows. Without the launcher's
+environment a loop is the single-device loop, and ``--tensor-parallel``
+above 1 raises a ValueError, as it does where T does not divide the
+world.
 """
 
 import argparse
@@ -77,9 +85,9 @@ from ..diffusion_model import DiffusionModel
 from ..model_base import ModelBase
 from ..models.init import init_like_flax
 from ..observe import Logger, LossTracker
-from ..parallel import (GradBuffer, StepSync, agree, broadcast_from_primary, full_tensor,
-                        init_distributed, launched, rank, shard_model_fsdp,
-                        shard_optimizer_like, shard_params_like, world_size)
+from ..parallel import (GradBuffer, StepSync, agree, broadcast_from_primary, cut_axes,
+                        data_rank, data_size, full_tensor_tp, init_distributed, init_grid,
+                        launched, rank, shard_train_state, world_size)
 from ..util import step_generator
 from ..vq import VQLossConfig
 from ..vq_vae import VQVAE
@@ -100,12 +108,6 @@ __all__ = [
     "step_generator",
 ]
 
-# The JAX package's flags that the port does not run, and why.
-NOT_PORTED = {
-    "--tensor-parallel": "tensor parallelism",
-}
-
-
 # A JAX Orbax run's model and optimizer directories (an interrupted Orbax
 # save leaves them as ``<name>.new``), which this port does not read.
 ORBAX_CHECKPOINTS = ("model.orbax", "opt.orbax")
@@ -113,12 +115,6 @@ ORBAX_CHECKPOINTS = ("model.orbax", "opt.orbax")
 # Small launches that open a --profile-dir trace on CUDA: torch.profiler
 # loses the device records of a profiling run's first launches (PERF.md §6).
 PROFILE_PAD = 4096
-
-
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} ({NOT_PORTED[option_string]}) is not ported to "
-                     "vq_voice_swap_torch yet (ROADMAP.md queue 1)")
 
 
 def copy_intersection(model: torch.nn.Module, src: torch.nn.Module, source: str) -> int:
@@ -149,7 +145,9 @@ class TrainLoop(ABC):
     def __init__(self, args: argparse.Namespace):
         self.args = args
         self.device = init_distributed(args.device)
+        self.grid = init_grid(args.tensor_parallel, self.device)
         self.world, self.primary = world_size(), rank() == 0
+        self.data_size = data_size()
         self.distributed = launched()
         if args.fsdp and not self.distributed:
             raise ValueError("--fsdp shards over the ranks of a launched run: start it with "
@@ -172,7 +170,7 @@ class TrainLoop(ABC):
         self.steps_per_dispatch = max(1, args.steps_per_dispatch or 1)
         self.data_loader, self.num_labels = create_data_loader(
             args.data_dir, args.batch_size, encoding=args.encoding, seed=self.rng_seed,
-            shard_index=rank(), num_shards=self.world)
+            shard_index=data_rank(), num_shards=self.data_size)
         self.model, self.resume = self.create_model()
 
         self.ema_rates = [float(r) for r in args.ema_rate.split(",")]
@@ -204,8 +202,11 @@ class TrainLoop(ABC):
                              write=self.primary)
         if self.distributed:
             self._sync_state_from_primary()
-            if args.fsdp:
-                self._shard()
+            if args.fsdp or self.grid is not None:
+                # --tensor-parallel cuts the state over the model group,
+                # --fsdp shards it over the data group.
+                self.optimizer = shard_train_state(
+                    self.model, self.emas, self.optimizer, self.opt_names, args.fsdp)
         self.tracker = LossTracker()
         self.total_steps = self.logger.start_step
         self.loop_steps = 0
@@ -216,9 +217,12 @@ class TrainLoop(ABC):
             micro_remainder = args.batch_size % args.microbatch
         sync = None
         if self.distributed:
-            # The whole parameters' gradients in one flat buffer (under FSDP
-            # the shards' are reduce-scattered by its hooks).
-            self.optimizer.grad_buffer = GradBuffer(self.optimizer.params)
+            # The plain parameters' gradients in one flat buffer, summed over
+            # the data group (under FSDP the shards' are reduce-scattered by
+            # its hooks).
+            cut = self.tp_axes
+            self.optimizer.grad_buffer = GradBuffer(
+                self.optimizer.params, [n in cut for n in self.opt_names])
             sync = StepSync(self.optimizer.grad_buffer)
         self.train_step = TrainStep(
             self.model, self.build_loss_fn(), self.optimizer, self.emas,
@@ -226,9 +230,12 @@ class TrainLoop(ABC):
             vq_rule=self.vq_update_rule(), drawer=self.build_drawer(), sync=sync)
         # Windows of K steps replay the step's forwards and backward from a
         # CUDA graph on the card (not under FSDP, whose collectives run in
-        # module hooks that a capture does not hold); else they run eagerly.
+        # module hooks that a capture does not hold, nor under tensor
+        # parallelism, whose gathers run over gloo between two ranks that
+        # share a card); else they run eagerly.
         self.graphed_step = None
-        if self.device.type == "cuda" and self.steps_per_dispatch > 1 and not args.fsdp:
+        if (self.device.type == "cuda" and self.steps_per_dispatch > 1 and not args.fsdp
+                and self.grid is None):
             self.graphed_step = GraphedTrainStep(self.train_step)
         self._pending: deque = deque()
         self._last_finish: Optional[float] = None
@@ -240,6 +247,11 @@ class TrainLoop(ABC):
     @property
     def dcp(self) -> bool:
         return self.args.checkpoint_format == "dcp"
+
+    @property
+    def tp_axes(self) -> Dict[str, int]:
+        """{parameter name: the axis it is cut along over the model group}."""
+        return cut_axes(self.model)
 
     def _sync_state_from_primary(self) -> None:
         """Make rank 0's built or resumed state every rank's: the model's
@@ -259,15 +271,6 @@ class TrainLoop(ABC):
             tensors += [st[k] for k in sorted(st)]
         broadcast_from_primary(tensors + [steps])
         self.logger.start_step, self.optimizer.count = (int(v) for v in steps)
-
-    def _shard(self) -> None:
-        """--fsdp: shard the model, then each EMA and AdamW's moments as
-        its parameters are (``parallel/fsdp.py``)."""
-        shard_model_fsdp(self.model, self.world)
-        for ema in self.emas:
-            shard_params_like(ema.model, self.model)
-        self.optimizer = shard_optimizer_like(
-            self.optimizer, [self.model.get_parameter(n) for n in self.opt_names])
 
     # ----------------------------------------------------------- main loop
 
@@ -392,7 +395,7 @@ class TrainLoop(ABC):
             seconds = now - (self._last_finish or dispatched)
         self._last_finish = now
         self._last_done = done
-        rate = self.args.batch_size * self.world * len(window) / seconds
+        rate = self.args.batch_size * self.data_size * len(window) / seconds
         for j, (metrics, loss) in enumerate(zip(window, losses)):
             self.tracker.add(metrics["ts"].cpu().numpy(),
                              metrics["mses"].float().cpu().numpy())
@@ -505,11 +508,11 @@ class TrainLoop(ABC):
         synchronous."""
         if self.dcp:
             dcp.save_run(self.checkpoint_path(), self.opt_path(), self.model, self.emas,
-                         self.optimizer, self.opt_names)
+                         self.optimizer, self.opt_names, self.tp_axes)
             self.logger.mark_save()
             return
         if not self.primary:
-            if self.args.fsdp:
+            if self.args.fsdp or self.grid is not None:
                 self._state(lambda t: t)  # every rank takes part in the gathers
             return
         if not self.args.async_save:
@@ -549,15 +552,20 @@ class TrainLoop(ABC):
         """The state a save writes, each tensor through ``take``: the
         model's state_dict, each EMA's parameters with the model's buffers
         (usage counts), and the optimizer's state_dict; shards whole."""
-        model = {k: take(full_tensor(v)) for k, v in self.model.state_dict().items()}
+        axes = self.tp_axes
+
+        def whole(name: str, t: torch.Tensor) -> torch.Tensor:
+            return take(full_tensor_tp(t, axes.get(name) if t.ndim else None))
+
+        model = {k: whole(k, v) for k, v in self.model.state_dict().items()}
         buffers = {n for n, _ in self.model.named_buffers()}
         emas = []
         for ema in self.emas:
-            state = {n: take(full_tensor(p)) for n, p in ema.model.named_parameters()}
+            state = {n: whole(n, p) for n, p in ema.model.named_parameters()}
             state.update((n, model[n]) for n in buffers)
             emas.append(state)
         opt = self.optimizer.state_dict()
-        opt["adamw"]["state"] = {i: {k: take(full_tensor(v)) for k, v in st.items()}
+        opt["adamw"]["state"] = {i: {k: whole(self.opt_names[i], v) for k, v in st.items()}
                                  for i, st in opt["adamw"]["state"].items()}
         return {"model": model, "emas": emas, "opt": opt}
 
@@ -583,7 +591,9 @@ class TrainLoop(ABC):
         if not self.primary:
             return
         info = dict(args=vars(self.args), command=sys.argv[0], start_steps=self.total_steps,
-                    num_devices=self.world, device=str(self.device),
+                    num_devices=self.world,
+                    tensor_parallel=1 if self.grid is None else self.grid.model_size,
+                    device=str(self.device),
                     steps_per_dispatch_route="cuda_graph" if self.graphed_step else "eager")
         with open(self.path(f"run_info_{int(time.time())}.json"), "w") as f:
             json.dump(info, f, indent=4)
@@ -655,8 +665,8 @@ class TrainLoop(ABC):
         parser.add_argument("--steps-per-dispatch", default=1, type=int,
                             help="run the steps in windows of K staged batches; on CUDA "
                                  "the step is one CUDA graph replayed K times a window, "
-                                 "except under --fsdp, whose windows run eagerly (saves "
-                                 "land on window boundaries)")
+                                 "except under --fsdp and --tensor-parallel, whose windows "
+                                 "run eagerly (saves land on window boundaries)")
         parser.add_argument("--async-save", action="store_true",
                             help="write checkpoints from a worker thread, overlapping "
                                  "the writes with training")
@@ -667,11 +677,17 @@ class TrainLoop(ABC):
                                  "copy on the card until the worker has written it)")
         parser.add_argument("--max-steps", default=None, type=int,
                             help="stop after this many steps (default: run until killed)")
+        parser.add_argument("--tensor-parallel", default=1, type=int,
+                            help="model-axis size of a 2-D data x model grid of the "
+                                 "ranks of a launched run; weights/optimizer shard on "
+                                 "their output-feature axis (the world size must be "
+                                 "divisible)")
         parser.add_argument("--fsdp", action="store_true",
                             help="ZeRO-3 over the ranks of a launched run: parameters, "
                                  "EMAs and AdamW moments stored sharded (state memory a "
-                                 "rank scales 1/N); --steps-per-dispatch windows run "
-                                 "eagerly")
+                                 "rank scales 1/N); composes with --tensor-parallel, "
+                                 "sharding over the data rows; --steps-per-dispatch "
+                                 "windows run eagerly")
         parser.add_argument("--checkpoint-format", default="npz", choices=("npz", "dcp"),
                             help="npz: single files, gathered and written by rank 0; dcp: "
                                  "model.dcp/ and opt.dcp/ through torch.distributed."
@@ -679,8 +695,6 @@ class TrainLoop(ABC):
                                  "resumes at any world size). Orbax is not ported")
         parser.add_argument("--device", default=None,
                             help="torch device (default: cuda; cuda:LOCAL_RANK under torchrun)")
-        for flag in NOT_PORTED:
-            parser.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
         parser.add_argument("data_dir", type=str)
         return parser
 

@@ -7,15 +7,20 @@ linear learning-rate anneal counted as ``optax.linear_schedule`` counts
 (the first update uses ``lr``); and an optional clip of the trainable
 gradients to a global norm, as ``optax.clip_by_global_norm`` clips them.
 
-On N ranks (``parallel/``) the whole parameters' gradients live in one
+On N ranks (``parallel/``) the plain parameters' gradients live in one
 flat buffer (``grad_buffer``, a ``parallel.dist.GradBuffer``, which
 ``zero_grad`` zeroes in place) and, under FSDP, the parameters, gradients
-and moments are DTensor shards beside the whole (replicated) ones: the
-clip's norm then sums the shards' squares over the ranks, and AdamW treats
-a whole tensor beside shards as replicated.
+and moments are DTensor shards beside the whole (replicated) ones, which
+AdamW then treats as replicated. Under tensor parallelism
+(``parallel/tensor.py``) some plain ones are this rank's shards of a
+parameter cut over the model group, which AdamW steps as they are. The
+clip's norm sums each gradient's squares over the groups that cut it, as
+the buffer names them: an FSDP shard's over its data group, a model
+shard's over its model group; a gradient whole on the ranks of a group
+counts once.
 """
 
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -23,7 +28,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
-__all__ = ["Optimizer", "build_optimizer", "prefix_predicate"]
+__all__ = ["Optimizer", "build_optimizer", "global_norm", "prefix_predicate"]
 
 
 def prefix_predicate(frozen_prefixes: Sequence[str]) -> Callable[[str], bool]:
@@ -72,21 +77,16 @@ class Optimizer:
     def clip_grads(self) -> None:
         """Scale the gradients by max / norm where their global norm is at
         least max, on the device (no host sync)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if not self.sharded:
-            norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+        buf = self.grad_buffer
+        grads = [p.grad for p in self.params]
+        if buf is None:
+            norm = global_norm(grads)
         else:
-            shards = [g.to_local() for g in grads if isinstance(g, DTensor)]
-            whole = [g for g in grads if not isinstance(g, DTensor)]
-            squares = torch.stack([g.float().square().sum() for g in shards]).sum()
-            dist.all_reduce(squares)
-            if whole:
-                squares = squares + torch.stack([g.float().square().sum() for g in whole]).sum()
-            norm = squares.sqrt()
+            norm = global_norm(grads, buf.model_cut, buf.data_group, buf.model_group)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                             self.grad_clip / norm)
-        torch._foreach_mul_([g.to_local() if isinstance(g, DTensor) else g for g in grads],
-                            scale)
+        torch._foreach_mul_([g.to_local() if isinstance(g, DTensor) else g
+                             for g in grads if g is not None], scale)
 
     def step(self) -> None:
         if self.grad_clip:
@@ -112,6 +112,32 @@ class Optimizer:
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.adamw.load_state_dict(state["adamw"])
         self.count = state["count"]
+
+
+def global_norm(grads: Sequence[Optional[torch.Tensor]],
+                model_cut: Optional[Sequence[bool]] = None, data_group: Any = None,
+                model_group: Any = None) -> torch.Tensor:
+    """The global norm of ``grads`` (None: no gradient), each square sum
+    summed over the groups that cut its tensor: an FSDP shard (a
+    ``DTensor``) over ``data_group``, a shard that ``model_cut`` flags over
+    ``model_group``; a tensor whole on every rank counts once. Off the
+    ranks, or with no shards, it is the plain norm and runs no
+    collective."""
+    model_cut = model_cut or [False] * len(grads)
+    parts: Dict[Tuple[bool, bool], List[torch.Tensor]] = {}
+    for g, cut in zip(grads, model_cut):
+        if g is not None:
+            fsdp = isinstance(g, DTensor)
+            local = g.to_local() if fsdp else g
+            parts.setdefault((fsdp, cut), []).append(local.float().square().sum())
+    sums = {key: torch.stack(v).sum() for key, v in parts.items()}
+    for axis, group in ((0, data_group), (1, model_group)):
+        keys = [key for key in sums if key[axis]]
+        if keys:
+            reduced = torch.stack([sums[key] for key in keys])
+            dist.all_reduce(reduced, group=group)
+            sums.update(zip(keys, reduced.unbind()))
+    return sum(sums.values()).sqrt()
 
 
 def build_optimizer(

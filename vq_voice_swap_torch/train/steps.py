@@ -29,7 +29,9 @@ backward ``synchronize`` sums the gradients and the scalar metrics and
 gathers the per-row ones; the codebook ORs the ``used`` masks over the
 ranks and revives from every rank's encoder rows, in the global batch's
 order, so that every rank draws the same picks and keeps the same
-codebook.
+codebook. Under tensor parallelism the ranks of a model group are one data
+row: they draw the same rows' draws and compute the same loss, and these
+collectives run over the data group (``parallel/dist.py``).
 """
 
 from dataclasses import dataclass

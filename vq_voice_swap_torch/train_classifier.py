@@ -7,6 +7,9 @@ are diffused to timesteps u ** power, the power annealed from
 warm-starts the stem from a diffusion model's UNet down path. Runs on
 CUDA unless --device names another device.
 
+Under ``torchrun`` it is one rank of a data-parallel run, with --fsdp and
+--tensor-parallel T (see ``train/loops.py``).
+
 Examples:
     python -m vq_voice_swap_torch.train_classifier --curriculum-start 30 \\
         --curriculum-steps 50000 tones:40

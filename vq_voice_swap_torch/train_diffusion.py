@@ -3,6 +3,9 @@ waveforms on one device (counterpart of the JAX package's
 ``train_diffusion.py``; see ``train/loops.py`` for the run directory and
 the flags). Runs on CUDA unless --device names another device.
 
+Under ``torchrun`` it is one rank of a data-parallel run, with --fsdp and
+--tensor-parallel T (see ``train/loops.py``).
+
 Examples:
     python -m vq_voice_swap_torch.train_diffusion tones
     python -m vq_voice_swap_torch.train_diffusion --class-cond --base-channels 64 \\

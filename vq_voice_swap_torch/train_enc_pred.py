@@ -5,6 +5,9 @@ guides ``sample_vqvae --enc-pred-path`` (counterpart of the JAX package's
 the flags; --grad-checkpoint is taken and, as in the JAX package, not
 applied to the encoder predictor). Runs on CUDA unless --device names another device.
 
+Under ``torchrun`` it is one rank of a data-parallel run, with --fsdp and
+--tensor-parallel T (see ``train/loops.py``).
+
 Examples:
     python -m vq_voice_swap_torch.train_enc_pred \\
         --vq-vae-path ckpt_vqvae/model.npz tones:40

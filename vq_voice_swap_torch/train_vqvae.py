@@ -4,6 +4,9 @@ decoder) on one device (counterpart of the JAX package's
 flags). The codebook's usage counts and the revival of dead codes run in
 every step. Runs on CUDA unless --device names another device.
 
+Under ``torchrun`` it is one rank of a data-parallel run, with --fsdp and
+--tensor-parallel T (see ``train/loops.py``).
+
 Examples:
     python -m vq_voice_swap_torch.train_vqvae --class-cond tones
     python -m vq_voice_swap_torch.train_vqvae tones:40 --predictor unet \\

@@ -5,6 +5,9 @@ directory and the flags). The dataset's labels follow the
 pretrained model's; the new rows start standard normal. Runs on CUDA
 unless --device names another device.
 
+Under ``torchrun`` it is one rank of a data-parallel run, with --fsdp and
+--tensor-parallel T (see ``train/loops.py``).
+
 Examples:
     python -m vq_voice_swap_torch.train_vqvae_add --class-cond \\
         --pretrained-path ckpt_vqvae/model.npz tones:40

@@ -6,6 +6,9 @@ row's label drops to the new unconditional label 0 with probability
 Sample with ``sample_vqvae_uncond`` afterwards. Runs on CUDA unless
 --device names another device.
 
+Under ``torchrun`` it is one rank of a data-parallel run, with --fsdp and
+--tensor-parallel T (see ``train/loops.py``).
+
 Examples:
     python -m vq_voice_swap_torch.train_vqvae_uncond --class-cond \\
         --no-class-prob 0.1 --no-vq-prob 0.1 \\
