@@ -54,7 +54,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    embedding trained): dca, dcb and the embedding's gradient. The
    classifier's widest GroupNorm [16, 32, 64000] (one channel a group,
    FiLM + GELU) forward, and VQ assign at the WaveGrad VQ-VAE's width
-   (512 channels, 512 codes, 1000 and 16000 rows). Every ticket counter
+   (512 channels, 512 codes, 1000 and 16000 rows). The statistics kernel
+   at one group of 17.2 M elements ([1, 4, 4300000], beyond 2^24), f32 and
+   bf16, against float64 statistics, with the apply kernel and the
+   two-kernel backward there; the split backward (reduce, dx) of two
+   shards, their sums added as the sequence-parallel all-reduce adds
+   them, against the plain backward of the whole input at [2, 128, 64000]
+   and [3, 20, 334], at one shard the two-kernel route's bits, timed at
+   [2, 128, 64000] f32 beside its bound, the one-device route, the plain
+   version and native_group_norm_backward. Every ticket counter
    (ops/tickets.py) is 0 after this phase, after phase 4 and after the
    last.
 3. Main paths, each with every launch count set to 0 just before it and
@@ -178,6 +186,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    within 1e-2 of the world-1 run's), one more profiled step; every
    rank's launches equal to the world-1 run's, state bytes a rank equal to
    the placements' count; wall seconds, rates and peak memory a rank.
+9. Sequence parallelism (``sequence_parallel_paths``): one torchrun launch
+   of 4 gloo ranks sharing the card, each holding a quarter of the time
+   axis: ``long_audio_convert`` of a 300 s speech-like clip with the
+   seeded flagship VQ-VAE (unet64 predictor, unet128 encoder, f32, TF32
+   off, 10 DPM++ steps; encoder outputs within 1e-4 and samples within
+   1e-3 of the world-1 run's largest magnitude, codes equal but at
+   near-ties, two codes' distances within 1e-4 relative, the samples then
+   held to one device's decode of the sharded run's codes) and 3 steps of
+   ``make_seq_parallel_train_step`` on the seeded unet64 diffusion model
+   at batch 2 of 16 s (losses within 1e-3 relative), each beside its
+   world-1 run in this process (which converts the clip on one device,
+   GroupNorm groups of 19.2 M elements); every rank's launches asserted
+   (statistics and apply a GroupNorm, the split reduce and dx a
+   GroupNorm a train step, no coefficients, cluster or fused launch);
+   wall seconds, RTF, peak memory and collectives a rank.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -622,6 +645,159 @@ def check_group_norm_training_grads(dev, gen):
     torch.cuda.empty_cache()
 
 
+# A group of more than 2^24 elements, where a float32 count stops being
+# exact: one group of [1, 4, 4300000] spans 17.2 M elements (the span of
+# unet64's first up level, four channels a group, at 4.5 minutes of audio).
+LONG_SPAN = (1, 4, 4_300_000)
+
+
+def _stats64(x: torch.Tensor, groups: int):
+    """Two-pass float64 group (mean, var) [N, G]."""
+    x = x.double().reshape(x.shape[0], groups, -1)
+    mean = x.mean(dim=-1)
+    return mean, torch.square(x - mean[..., None]).mean(dim=-1)
+
+
+def check_group_norm_long_span(dev, gen) -> None:
+    """The statistics kernel as (mean, var) and folded with FiLM, the apply
+    kernel and the two-kernel backward at LONG_SPAN, f32 and bf16, against
+    the float64 statistics and the plain versions."""
+    n, c, t = LONG_SPAN
+    eps = 1e-5
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        x = (torch.randn(LONG_SPAN, generator=gen, device=dev) + 0.5).to(dtype)
+        dy = torch.randn(LONG_SPAN, generator=gen, device=dev).to(dtype)
+        w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+        b = 0.2 * torch.randn(c, generator=gen, device=dev)
+        film = tuple((0.5 * torch.randn(n, 2 * c, generator=gen, device=dev)).to(dtype)
+                     .chunk(2, dim=-1))
+        mean64, var64 = _stats64(x, 1)
+        mean_k, var_k = gn.group_norm_stats(x, 1)
+        e_mean = (mean_k.double() - mean64).abs().max().item()
+        e_var = ((var_k.double() - var64).abs() / var64).max().item()
+        folded = gn.fold_affine(mean64.float(), var64.float(), w, b, eps, film)
+        coeffs = gn.group_norm_coeffs(x, 1, w, b, eps, film)
+        e_coef = max(((k - p).abs() / p.abs().clamp(min=1.0)).max().item()
+                     for k, p in zip(coeffs, folded))
+        e_apply = out_err(gn.group_norm_apply(x, *coeffs, True),
+                          gn.group_norm_apply_plain(x, *folded, True))
+        route = gn.bwd_route(x, 1)
+        got = gn.group_norm_backward(x, dy, 1, w, b, eps, True, film)
+        want = gn.group_norm_backward_plain(x, dy, 1, w, b, eps, True, film)
+        e_dx = out_err(got[0], want[0])
+        e_s = max(((g - v).abs().max() / v.abs().max()).item()
+                  for g, v in zip(got[1:], want[1:]))
+        stats_ms = cuda_ms(lambda: gn.group_norm_stats(x, 1), 10)
+        sb, sby = bound_ms(x.numel() * x.element_size(), 4 * x.numel())
+        torch.cuda.synchronize()
+        print(f"groupnorm long span {list(LONG_SPAN)} {str(dtype)[6:]} (one group of "
+              f"{c * t} elements, above 2^24 = {1 << 24}): mean err {e_mean:.3g} and var rel "
+              f"err {e_var:.3g} against float64 (limits 1e-5, 1e-4), (mean, a, b) with FiLM "
+              f"rel err {e_coef:.3g} (1e-4), apply+GELU err {e_apply:.3g} ({tol}); backward "
+              f"route {route.name}, dx err {e_dx:.3g} ({tol}), S1/S2 err {e_s:.3g} (1e-4); "
+              f"(mean, var) {stats_ms:.4f} ms, {100 * sb / stats_ms:.1f}% of its bound "
+              f"{sb:.4f} by {sby}")
+        assert e_mean <= 1e-5 and e_var <= 1e-4 and e_coef <= 1e-4, dtype
+        assert e_apply <= tol and e_dx <= tol and e_s <= 1e-4 and route.name == "two_kernel"
+        del x, dy, got, want, coeffs
+    torch.cuda.empty_cache()
+
+
+def _split_backward(shards, groups, stats, w, b, eps, use_gelu, film):
+    """The sequence-parallel backward of a group cut into ``shards`` (x,
+    dy pairs along T): each shard's reduce, their sums (the all-reduce),
+    then each shard's dx with the whole group's count. (dx, S1, S2)."""
+    sums = [gn.group_norm_bwd_reduce(x, dy, groups, *stats, w, b, eps, use_gelu, film)
+            for x, dy in shards]
+    s1, s2 = (torch.stack(v).sum(dim=0) for v in zip(*sums))
+    count = shards[0][0].shape[1] // groups * sum(x.shape[2] for x, _ in shards)
+    dx = torch.cat([gn.group_norm_bwd_dx(x, dy, groups, *stats, w, b, eps, use_gelu, film,
+                                         s1, s2, count) for x, dy in shards], dim=-1)
+    return dx, s1, s2
+
+
+def check_group_norm_split_backward(dev, gen):
+    """The split backward (reduce, then dx; ``parallel/sequence.py``'s
+    route, the all-reduce between them simulated by summing two shards'
+    partials) against group_norm_backward_plain of the whole input, at
+    phase 9's training shape a rank at unet64's first up level ([2, 128,
+    64000], four channels a group) and an odd T with 5 channels a group,
+    f32 and bf16, with and without FiLM and GELU; at one shard it is the
+    two-kernel route's bits. Timed at [2, 128, 64000] f32, no FiLM, no
+    GELU, beside the one-device routes, the plain version and
+    native_group_norm_backward. Returns the JSON entry."""
+    eps, err = 1e-5, 0.0
+    for shape, groups in (((2, 128, SAMPLES), 32), ((3, 20, 334), 4)):
+        n, c, t = shape
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+            dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+            b = 0.2 * torch.randn(c, generator=gen, device=dev)
+            proj = (0.5 * torch.randn(n, 2 * c, generator=gen, device=dev)).to(dtype)
+            stats = gn.group_norm_stats(x, groups)
+            halves = [(u.contiguous(), v.contiguous())
+                      for u, v in zip(x.chunk(2, dim=-1), dy.chunk(2, dim=-1))]
+            for film in (None, tuple(proj.chunk(2, dim=-1))):
+                for use_gelu in (False, True):
+                    got = _split_backward(halves, groups, stats, w, b, eps, use_gelu, film)
+                    want = gn.group_norm_backward_plain(x, dy, groups, w, b, eps, use_gelu,
+                                                        film, stats)
+                    one = _split_backward([(x, dy)], groups, stats, w, b, eps, use_gelu, film)
+                    two = gn._launch_bwd(x, dy, groups, *stats, w, b, eps, use_gelu, film,
+                                         gn.BwdRoute("two_kernel", *gn.bwd_slices(x)))
+                    torch.cuda.synchronize()
+                    e_dx = out_err(got[0], want[0])
+                    e_s = max(((g - v).abs().max() / v.abs().max()).item()
+                              for g, v in zip(got[1:], want[1:]))
+                    same = all(torch.equal(u, v) for u, v in zip(one, two))
+                    print(f"groupnorm split backward {list(shape)} {str(dtype)[6:]} "
+                          f"film={film is not None} gelu={use_gelu}, two shards: dx err "
+                          f"{e_dx:.3g} (limit {tol}), S1/S2 err {e_s:.3g} (1e-4); one shard: "
+                          f"the two-kernel route's bits {same}")
+                    assert e_dx <= tol and e_s <= 1e-4 and same, (shape, dtype)
+                    if dtype == torch.float32:
+                        err = max(err, (got[0] - want[0]).abs().max().item())
+            del x, dy, halves
+
+    n, c, t, groups = 2, 128, SAMPLES, 32
+    x = torch.randn((n, c, t), generator=gen, device=dev)
+    dy = torch.randn((n, c, t), generator=gen, device=dev)
+    w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    b = 0.2 * torch.randn(c, generator=gen, device=dev)
+    stats = gn.group_norm_stats(x, groups)
+    _, mean, rstd = torch.ops.aten.native_group_norm(x, w, b, n, c, t, groups, eps)
+    count = c // groups * t
+    split_ms = cuda_ms(lambda: gn.group_norm_bwd_dx(
+        x, dy, groups, *stats, w, b, eps, False, None,
+        *gn.group_norm_bwd_reduce(x, dy, groups, *stats, w, b, eps, False, None), count), 20)
+    reduce_ms = cuda_ms(lambda: gn.group_norm_bwd_reduce(x, dy, groups, *stats, w, b, eps,
+                                                         False, None), 20)
+    route = gn.bwd_route(x, groups)
+    route_ms = cuda_ms(lambda: gn._launch_bwd(x, dy, groups, *stats, w, b, eps, False, None),
+                       20)
+    plain = cuda_ms(lambda: gn.group_norm_backward_plain(x, dy, groups, w, b, eps, False, None,
+                                                         stats), 5)
+    lib = cuda_ms(lambda: torch.ops.aten.native_group_norm_backward(
+        dy, x, mean, rstd, w, n, c, t, groups, [True, False, False]), 20)
+    bnd, by = bound_ms(3 * x.numel() * 4, 15 * x.numel())
+    print(f"groupnorm split backward timing {[n, c, t]} f32, no FiLM, no GELU: reduce + dx "
+          f"{split_ms:.4f} ms ({100 * bnd / split_ms:.1f}% of its bound {bnd:.4f} by {by}; "
+          f"reduce alone {reduce_ms:.4f}, so dx {split_ms - reduce_ms:.4f}; five passes: x "
+          f"and dy read twice, dx written), one-device route {route.name} ({route.blocks} "
+          f"blocks) {route_ms:.4f} ms, plain {plain:.4f} ms, native_group_norm_backward (dx) "
+          f"{lib:.4f} ms; the all-reduce between them is not in these times")
+    del x, dy
+    torch.cuda.empty_cache()
+    return dict(name="group_norm_bwd_split", route="cuda",
+                source="vq_voice_swap_torch/csrc/group_norm_bwd.cu",
+                replaces="vq_voice_swap_tpu/ops/fused_norm.py:280 (_fgn_bwd; no Pallas "
+                         "kernel) under vq_voice_swap_tpu/parallel/sequence.py:146",
+                launches=0, max_abs_err=err, ms=split_ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=lib, reduce_ms=reduce_ms, passes=5,
+                one_device_route_ms=route_ms)
+
+
 def _vq_pick_gap(d, x, got, want):
     """Largest float64 distance gap between the two picks of any row, and
     the largest such gap relative to the distance (0 where they agree)."""
@@ -879,6 +1055,7 @@ def write_wav(path: str, samples: np.ndarray) -> None:
 # Each kernel's wrappers; the statistics kernel has two entry points.
 COUNTED = (vqa.vq_assign, gn.group_norm_coeffs, gn.group_norm_stats, gn.group_norm_apply,
            gn.group_norm_backward, gn._bwd_cluster, gn._bwd_two_kernel,
+           gn.group_norm_bwd_reduce, gn.group_norm_bwd_dx,
            frb.fused_resblock_stats, frb.fused_resblock_apply)
 KERNEL_WRAPPERS = {"group_norm_stats": ("group_norm_coeffs", "group_norm_stats")}
 
@@ -3053,6 +3230,324 @@ def tensor_parallel_paths(workdir: str, smi: str, ckpt: str, uncond_ckpt: str) -
     return counts
 
 
+# ------------------------------------------------------------------ phase 9
+
+# Sequence parallelism: one torchrun launch of SEQ_RANKS ranks sharing the
+# card over gloo, each holding a contiguous quarter of the time axis and
+# running this script's seq_rank_main. Beside each run, its world-1 run in
+# this process: the same CLI or step at one rank, the whole sequence on one
+# device.
+SEQ_RANKS = 4
+SEQ_DEVICE = "cuda:0"
+SEQ_SPEC = "--seq-run"
+# Phase 5's flagship VQ-VAE (the tones flagship's configuration: unet64
+# predictor, unet128 encoder, the three tones speakers), seeded.
+SEQ_VQVAE_KWARGS = dict(pred_name="unet", base_channels=64, enc_name="unet128", cond_mult=16,
+                        dictionary_size=512, num_labels=3)
+SEQ_VQVAE_PARAMS = 61_515_393
+SEQ_SWAP_SAMPLES = 4688 * 1024  # 300.032 s: a multiple of 256 x 4 ranks, kept whole by both
+SEQ_SWAP_STEPS = 10
+SEQ_SWAP_LABEL = 1
+SEQ_TRAIN_STEPS = 3
+SEQ_TRAIN_BATCH = 2
+SEQ_TRAIN_SAMPLES = 16 * SAMPLE_RATE
+# Stated limits (the predictions are ten times tighter): the conversion's
+# f32 samples (TF32 off) of the world-1 run's largest magnitude (of one
+# device's decode of the sharded run's codes where a near-tie of two codes
+# went the other way), the losses relative to the world-1 run's; the
+# GroupNorm merge sums in another order than one device's.
+SEQ_SWAP_TOL = 1e-3
+SEQ_LOSS_TOL = 1e-3
+SEQ_ENC_TOL = 1e-4  # the encoder outputs, of the world-1 run's largest magnitude
+SEQ_TIE_TOL = 1e-4  # a near-tie of two codes: their distances, relative
+
+
+def _seq_argv(ckpt: str, clip: str, out: str):
+    return ["--checkpoint-path", ckpt, "--input", clip, "--output", out, "--label",
+            str(SEQ_SWAP_LABEL), "--steps", str(SEQ_SWAP_STEPS), "--sampler", "dpmpp",
+            "--device", SEQ_DEVICE]
+
+
+@contextlib.contextmanager
+def recorded_codes(into: list):
+    """Record each vq_forward's (encoder output, codes) of this process."""
+    from vq_voice_swap_torch import vq
+
+    forward = vq.vq_forward
+
+    def record(dictionary, x):
+        out = forward(dictionary, x)
+        into.append((x.float().cpu().numpy(), out["idxs"].cpu().numpy()))
+        return out
+
+    vq.vq_forward = record
+    try:
+        yield into
+    finally:
+        vq.vq_forward = forward
+
+
+def seq_runs(root: str, vqvae: str, diffusion: str, clip: str) -> dict:
+    """Phase 9's runs in this process, over as many ranks as its group
+    has (one without a group): ``long_audio_convert`` of the 5-minute clip
+    (f32, TF32 off, 10 DPM++ steps), then SEQ_TRAIN_STEPS steps of
+    ``make_seq_parallel_train_step`` on the unet64 diffusion model at
+    batch 2 of 16 s (deterministic algorithms). Writes the gathered
+    conversion and this rank's codes into root; returns {run: wall
+    seconds, launches, peak GiB, collectives, ...}."""
+    from vq_voice_swap_torch import long_audio_convert
+    from vq_voice_swap_torch.parallel import rank
+    from vq_voice_swap_torch.parallel import sequence as sq
+    from vq_voice_swap_torch.train import build_optimizer
+
+    me, dev = rank(), torch.device(SEQ_DEVICE)
+    mesh = sq.create_seq_mesh()
+    tag = f"w{mesh.size}"
+    res = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sq.COLLECTIVES.clear()
+    printed = _Tee(sys.stdout)
+    with recorded_codes([]) as codes, contextlib.redirect_stdout(printed):
+        out, seconds, counts, peak = _timed(lambda: long_audio_convert.main(
+            _seq_argv(vqvae, clip, os.path.join(root, f"swap_{tag}.wav"))))
+    decode = float(re.search(r"decoded in ([0-9.]+)s", printed.getvalue()).group(1)) \
+        if me == 0 else None
+    res["swap"] = dict(seconds=seconds, decode_s=decode, counts=counts, peak_gib=peak,
+                       collectives=dict(sq.COLLECTIVES))
+    (enc, idxs), = codes
+    np.save(os.path.join(root, f"codes_{tag}_{me}.npy"), idxs)
+    np.save(os.path.join(root, f"enc_{tag}_{me}.npy"), enc)
+    if me == 0:
+        np.save(os.path.join(root, f"swap_{tag}.npy"), out)
+    del out, codes, enc
+
+    model = DiffusionModel.load(diffusion, device=dev)
+    opt = build_optimizer(model.predictor, lr=1e-4)
+    step = sq.make_seq_parallel_train_step(mesh, model.diffusion, model.predictor, opt)
+    clips = np.stack([speech_like(20 + i, SEQ_TRAIN_SAMPLES) for i in range(SEQ_TRAIN_BATCH)])
+    x = sq.shard_sequence(mesh, torch.from_numpy(clips[:, :, None]).to(dev))
+    sq.COLLECTIVES.clear()
+    losses, step_s = [], []
+
+    def train():
+        for i in range(SEQ_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, per = step(x, generator=step_generator(0, i, dev))
+            losses.append([loss.item()] + per.tolist())
+            step_s.append(time.perf_counter() - t0)
+
+    with deterministic(True):
+        _, seconds, counts, peak = _timed(train)
+    res["train"] = dict(seconds=seconds, step_s=step_s, losses=losses, counts=counts,
+                        peak_gib=peak, collectives=dict(sq.COLLECTIVES))
+    del model, opt, step, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def seq_rank_main(spec: str) -> int:
+    """One rank of phase 9's launch, ``spec`` a JSON {"root", "vqvae",
+    "diffusion", "clip"}: the group over gloo on cuda:0 (its collectives
+    checked), then ``seq_runs``; writes rank<r>.json into root."""
+    from vq_voice_swap_torch.parallel import init_distributed, rank
+
+    spec = json.loads(spec)
+    init_distributed(SEQ_DEVICE, "gloo")
+    check_gloo_collectives()
+    res = seq_runs(spec["root"], spec["vqvae"], spec["diffusion"], spec["clip"])
+    with open(os.path.join(spec["root"], f"rank{rank()}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _seq_checkpoints(workdir: str):
+    """The seeded flagship VQ-VAE (its codebook centred on the encoder's
+    outputs over four 4 s clips) and unet64 diffusion model, saved."""
+    dev = torch.device(SEQ_DEVICE)
+    model = VQVAE(**SEQ_VQVAE_KWARGS)
+    seed_weights(model, 3)
+    n_params = sum(p.numel() for p in model.parameters())
+    assert n_params == SEQ_VQVAE_PARAMS, n_params
+    model = model.to(dev).eval()
+    clips = np.stack([speech_like(30 + i, SAMPLES) for i in range(4)])
+    with torch.no_grad():
+        enc = model.encode_raw(torch.from_numpy(clips[:, :, None]).to(dev))
+        model.vq.dictionary.copy_(
+            enc.mean(dim=(0, 1)) + model.vq.dictionary * enc.std(dim=1).mean())
+    vqvae = os.path.join(workdir, "seq_vqvae.npz")
+    model.save(vqvae)
+    diffusion = DiffusionModel(**UNCOND_KWARGS)
+    seed_weights(diffusion, 4)
+    path = os.path.join(workdir, "seq_diffusion.npz")
+    diffusion.save(path)
+    del model, enc, diffusion
+    torch.cuda.empty_cache()
+    return vqvae, path, n_params
+
+
+def _codes_check(enc1: np.ndarray, enc4: np.ndarray, dictionary: np.ndarray,
+                 codes1: np.ndarray, codes4: np.ndarray):
+    """(codes that differ, the encoder outputs' largest difference over
+    their largest magnitude, the largest relative gap between the two
+    codes' float64 distances at a differing row). Asserts that each
+    differing row's two codes are a near-tie under either run's encoder
+    output: distances within SEQ_TIE_TOL relative, a gap that float32
+    distances of these magnitudes (the VQ kernel's 3xTF32 arithmetic) and
+    the encoder outputs' rounding can rank either way."""
+    d64 = dictionary.astype(np.float64)
+    e1 = enc1.reshape(-1, d64.shape[1]).astype(np.float64)
+    e4 = enc4.reshape(-1, d64.shape[1]).astype(np.float64)
+    c1, c4 = codes1.reshape(-1), codes4.reshape(-1)
+    diff = np.nonzero(c1 != c4)[0]
+    gap = 0.0
+    for i in diff:
+        for e in (e1[i], e4[i]):
+            a, b = (np.sum((e - d64[k]) ** 2) for k in (c1[i], c4[i]))
+            gap = max(gap, abs(a - b) / max(a, b))
+            assert abs(a - b) <= SEQ_TIE_TOL * max(a, b), (i, c1[i], c4[i], a, b)
+    return len(diff), float(np.abs(e1 - e4).max() / np.abs(e1).max()), gap
+
+
+@torch.no_grad()
+def _decode_codes(vqvae: str, codes: np.ndarray) -> np.ndarray:
+    """The one-device decode of ``codes`` [1, T1] as ``long_audio_convert``
+    decodes its own (seed 0: x_T, then the sampler's draws; label
+    SEQ_SWAP_LABEL; 10 DPM++ steps with the x0 constraint)."""
+    from vq_voice_swap_torch.parallel import sequence as sq
+
+    dev = torch.device(SEQ_DEVICE)
+    model = VQVAE.load(vqvae, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cond = model.vq.dictionary[torch.from_numpy(codes).to(dev)]
+    x_T = torch.randn((1, cond.shape[1] * model.encoder.downsample_rate, 1), generator=gen,
+                      device=dev)
+    out = sq.seq_parallel_sample(sq.create_seq_mesh(), model.diffusion, model.predictor, x_T,
+                                 SEQ_SWAP_STEPS, gen, cond=cond,
+                                 labels=torch.tensor([SEQ_SWAP_LABEL], device=dev),
+                                 sampler="dpmpp", constrain=True)
+    return out.reshape(-1).cpu().numpy()
+
+
+def sequence_parallel_paths(workdir: str, smi: str) -> dict:
+    """Phase 9: ``long_audio_convert`` of a 5-minute speech-like clip with
+    the flagship VQ-VAE (f32, TF32 off, 10 DPM++ steps, label 1) and 3
+    steps of ``make_seq_parallel_train_step`` on the unet64 diffusion
+    model at batch 2 of 16 s, on SEQ_RANKS gloo ranks sharing the card,
+    against their world-1 runs in this process (which convert the clip on
+    one device: GroupNorm groups of 19.2 M elements at unet64's first up
+    level, beyond 2^24). Asserts the encoder outputs within
+    SEQ_ENC_TOL, each differing code a near-tie (``_codes_check``; the
+    samples then held to one device's decode of the sharded run's codes),
+    the samples and losses within the stated limits, and every rank's
+    launches: the conversion 1 VQ and 131 GroupNorm statistics and apply a
+    predictor call plus the encoder's 47, training 131 statistics, apply,
+    split reduce and split dx a step, and no group_norm_coeffs, cluster
+    backward or fused launch. Prints wall seconds, RTF, peak GiB a rank
+    and the collectives. Returns {run, rank: launch counts}."""
+    root = os.path.join(workdir, "seq")
+    os.makedirs(root)
+    vqvae, diffusion, n_params = _seq_checkpoints(workdir)
+    clip = os.path.join(workdir, "long.wav")
+    write_wav(clip, speech_like(11, SEQ_SWAP_SAMPLES))
+    seconds_audio = SEQ_SWAP_SAMPLES / SAMPLE_RATE
+    t0 = time.perf_counter()
+    one = seq_runs(root, vqvae, diffusion, clip)
+    world1 = time.perf_counter() - t0
+    spec = json.dumps(dict(root=root, vqvae=vqvae, diffusion=diffusion, clip=clip))
+    t0 = time.perf_counter()
+    printed = _launch(workdir, "sequence parallelism", SEQ_RANKS, [SEQ_SPEC, spec])
+    wall = time.perf_counter() - t0
+    assert printed.count(" carries ") == SEQ_RANKS, printed[-3000:]
+    ranks = []
+    for r in range(SEQ_RANKS):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"phase 9 on {smi}: the world-1 runs {world1:.1f} s in this process; one launch of "
+          f"{SEQ_RANKS} gloo ranks on {SEQ_DEVICE}, the time axis cut in {SEQ_RANKS}: "
+          f"{wall:.1f} s wall")
+    counts = {}
+    zero = ("group_norm_coeffs", "group_norm_backward", "_bwd_cluster", "_bwd_two_kernel",
+            "fused_resblock_stats", "fused_resblock_apply")
+
+    def launches(run: str, want: dict):
+        for r, res in enumerate(ranks + [one]):
+            c = res[run]["counts"]
+            counts[f"{run} {'world 1' if r == SEQ_RANKS else f'rank {r}'}"] = c
+            assert all(c[k] == 0 for k in zero), (run, r, c)
+            assert all(c[k] == v for k, v in want.items()), (run, r, c, want)
+        return ", ".join(f"{k} {v}" for k, v in ranks[0][run]["counts"].items() if v)
+
+    # The conversion.
+    gn_swap = GN_PER_ENCODER128 + GN_PER_PREDICTOR * SEQ_SWAP_STEPS
+    swap_launches = launches("swap", dict(vq_assign=1, group_norm_stats=gn_swap,
+                                          group_norm_apply=gn_swap, group_norm_bwd_reduce=0,
+                                          group_norm_bwd_dx=0))
+    codes, enc = (np.concatenate([np.load(os.path.join(root, f"{k}_w{SEQ_RANKS}_{r}.npy"))
+                                  for r in range(SEQ_RANKS)], axis=1) for k in ("codes", "enc"))
+    want_codes = np.load(os.path.join(root, "codes_w1_0.npy"))
+    dictionary = next(v for k, v in _params_npz(vqvae).items() if k.endswith("dictionary"))
+    ties, enc_err, gap = _codes_check(np.load(os.path.join(root, "enc_w1_0.npy")), enc,
+                                      dictionary, want_codes, codes)
+    got, want = (np.load(os.path.join(root, f"swap_w{w}.npy")) for w in (SEQ_RANKS, 1))
+    held_to = "the world-1 run's"
+    if ties:  # the conditioning differs there: hold the samples to one device's decode of it
+        want, held_to = _decode_codes(vqvae, codes), "one device's decode of the same codes"
+    err = _scaled_error(got, want)
+    col = ranks[0]["swap"]["collectives"]
+    calls = {k: v for k, v in col.items() if not k.endswith(" bytes")}
+    print(f"  long_audio_convert ({seconds_audio:.3f} s of audio, the flagship VQ-VAE, "
+          f"{n_params} parameters, f32, TF32 off, {SEQ_SWAP_STEPS} DPM++ steps): "
+          f"encoder outputs within {enc_err:.3g} of the world-1 run's largest magnitude "
+          f"(limit {SEQ_ENC_TOL}); {codes.size} codes, {ties} different (near-ties: their "
+          f"distances within {gap:.3g} relative, limit {SEQ_TIE_TOL}), "
+          f"{len(np.unique(want_codes))} distinct; samples "
+          f"within {err:.3g} of {held_to}, of its largest magnitude {np.abs(want).max():.4f} "
+          f"(limit {SEQ_SWAP_TOL}); decode "
+          f"{ranks[0]['swap']['decode_s']:.3f} s at {SEQ_RANKS} ranks, RTF "
+          f"{seconds_audio / ranks[0]['swap']['decode_s']:.4f}x (world 1: "
+          f"{one['swap']['decode_s']:.3f} s, {seconds_audio / one['swap']['decode_s']:.4f}x); "
+          f"wall with the model load {[round(x['swap']['seconds'], 3) for x in ranks]} s a "
+          f"rank (world 1 {one['swap']['seconds']:.3f}); peak device memory a rank "
+          f"{[round(x['swap']['peak_gib'], 3) for x in ranks]} GiB (world 1: "
+          f"{one['swap']['peak_gib']:.3f}); collectives a rank {calls}, bytes sent a rank "
+          f"{ {k[:-6]: v for k, v in col.items() if k.endswith(' bytes')} }; launches a "
+          f"rank: {swap_launches}")
+    assert err <= SEQ_SWAP_TOL and enc_err <= SEQ_ENC_TOL and np.isfinite(got).all()
+
+    # Training.
+    gn_train = GN_PER_PREDICTOR * SEQ_TRAIN_STEPS
+    train_launches = launches("train", dict(vq_assign=0, group_norm_stats=gn_train,
+                                            group_norm_apply=gn_train,
+                                            group_norm_bwd_reduce=gn_train,
+                                            group_norm_bwd_dx=gn_train))
+    got_l, want_l = (np.array(x["train"]["losses"]) for x in (ranks[0], one))
+    loss_err = float(np.abs(got_l / want_l - 1).max())
+    col = ranks[0]["train"]["collectives"]
+    rate = [SEQ_TRAIN_BATCH * SEQ_TRAIN_SAMPLES / SAMPLE_RATE / s
+            for s in ranks[0]["train"]["step_s"]]
+    print(f"  seq-parallel train step (unet64 diffusion model, batch {SEQ_TRAIN_BATCH} of "
+          f"{SEQ_TRAIN_SAMPLES // SAMPLE_RATE} s, f32, TF32 off, deterministic, "
+          f"{SEQ_TRAIN_STEPS} steps): losses {[round(float(v[0]), 6) for v in got_l]} (world "
+          f"1 {[round(float(v[0]), 6) for v in want_l]}), largest relative error {loss_err:.3g} of "
+          f"the loss and per-element losses (limit {SEQ_LOSS_TOL}), the same on every rank "
+          f"{all(x['train']['losses'] == ranks[0]['train']['losses'] for x in ranks)}; step "
+          f"seconds {[round(v, 3) for v in ranks[0]['train']['step_s']]} (world 1 "
+          f"{[round(v, 3) for v in one['train']['step_s']]}), seconds of audio a second "
+          f"{[round(v, 3) for v in rate]}; peak device memory a rank "
+          f"{[round(x['train']['peak_gib'], 3) for x in ranks]} GiB (world 1: "
+          f"{one['train']['peak_gib']:.3f}); collectives a rank "
+          f"{ {k: v for k, v in col.items() if not k.endswith(' bytes')} }; launches a rank: "
+          f"{train_launches}")
+    assert loss_err <= SEQ_LOSS_TOL and np.isfinite(got_l).all()
+    assert all(x["train"]["losses"] == ranks[0]["train"]["losses"] for x in ranks)
+    print("  every collective staged through host memory by gloo between processes on one "
+          "card: the times above are not an interconnect's")
+    shutil.rmtree(root)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3061,6 +3556,8 @@ def main() -> int:
         return rank_main(sys.argv[2])
     if sys.argv[1:2] == [TP_SPEC]:
         return tp_rank_main(sys.argv[2])
+    if sys.argv[1:2] == [SEQ_SPEC]:
+        return seq_rank_main(sys.argv[2])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -3083,6 +3580,8 @@ def main() -> int:
     kernels = check_group_norm(dev, gen) + [check_vq(dev, gen)]
     torch.cuda.empty_cache()
     kernels.append(check_group_norm_backward(dev, gen))
+    check_group_norm_long_span(dev, gen)
+    kernels.append(check_group_norm_split_backward(dev, gen))
     check_group_norm_training_grads(dev, gen)
     kernels += check_fused_resblock(dev, gen)
     check_tickets("the kernel checks")
@@ -3101,6 +3600,8 @@ def main() -> int:
         for k in kernels:
             if k["name"] == "group_norm_backward":  # the two differentiating paths
                 k["launches"] = sum(c["_bwd_cluster"] for c in guided.values())
+                continue
+            if k["name"] == "group_norm_bwd_split":  # phase 9's training sets it
                 continue
             path = sampling_launches if k["name"].startswith("fused") else swap_launches
             k["launches"] = sum(path[w] for w in KERNEL_WRAPPERS.get(k["name"], (k["name"],)))
@@ -3139,6 +3640,16 @@ def main() -> int:
             f"{k} {sum(c[k] for c in tensor_parallel.values())}" for k in (
                 "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward",
                 "fused_resblock_stats", "fused_resblock_apply")))
+        sequence = sequence_parallel_paths(workdir, smi)
+        print(f"phase 9: {time.perf_counter() - t_start:.1f} s")
+        print("sequence-parallel launches, all ranks and the world-1 runs: " + ", ".join(
+            f"{k} {sum(c[k] for c in sequence.values())}" for k in (
+                "vq_assign", "group_norm_stats", "group_norm_apply", "group_norm_bwd_reduce",
+                "group_norm_bwd_dx", "group_norm_coeffs", "_bwd_cluster")))
+        for k in kernels:
+            if k["name"] == "group_norm_bwd_split":  # phase 9's training, rank 0
+                c = sequence["train rank 0"]
+                k["launches"] = c["group_norm_bwd_reduce"] + c["group_norm_bwd_dx"]
     check_tickets("the data and eval paths")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 

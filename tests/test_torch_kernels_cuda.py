@@ -873,3 +873,65 @@ def test_world_size_one_steps_match_the_plain_step(cuda_gen):
             for n in want:
                 scale = want[n].abs().max().clamp(min=1e-6)
                 assert ((got[n] - want[n]).abs().max() / scale).item() <= 1e-2, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_stats_above_2_pow_24(cuda_gen, dtype):
+    """One group of 4 x 4300000 = 17.2 M elements, where a float32 count
+    stops being exact: (mean, var) and the folded coefficients against the
+    float64 statistics, and the apply kernel against its plain version."""
+    shape = (1, 4, 4_300_000)
+    x = (torch.randn(shape, generator=cuda_gen, device="cuda") + 0.5).to(dtype)
+    x64 = x.double().reshape(1, 1, -1)
+    mean64 = x64.mean(dim=-1)
+    var64 = torch.square(x64 - mean64[..., None]).mean(dim=-1)
+    mean, var = gn.group_norm_stats(x, 1)
+    torch.testing.assert_close(mean.double(), mean64, atol=1e-5, rtol=0)
+    torch.testing.assert_close(var.double(), var64, atol=0, rtol=1e-4)
+    w = torch.rand(4, generator=cuda_gen, device="cuda") + 0.5
+    b = torch.randn(4, generator=cuda_gen, device="cuda")
+    folded = gn.fold_affine(mean64.float(), var64.float(), w, b, 1e-5)
+    coeffs = gn.group_norm_coeffs(x, 1, w, b, 1e-5)
+    for k, p in zip(coeffs, folded):
+        torch.testing.assert_close(k, p, atol=1e-4, rtol=1e-4)
+    got = gn.group_norm_apply(x, *coeffs, True).float()
+    want = gn.group_norm_apply_plain(x, *folded, True).float()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert ((got - want).abs() / want.abs().clamp(min=1.0)).max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,groups", [((2, 128, 64000), 32), ((3, 20, 334), 4)])
+@pytest.mark.parametrize("film", [False, True])
+def test_group_norm_split_backward_matches_unsharded(cuda_gen, dtype, tol, shape, groups, film):
+    """The sequence-parallel backward with its all-reduce simulated: the
+    reduce kernel on each of two shards along T, their partials summed,
+    then the dx kernel on each shard with the whole group's count, against
+    the unsharded backward (plain), GELU on; one launch of each per shard."""
+    n, c, t = shape
+    x = (torch.randn(shape, generator=cuda_gen, device="cuda") + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=cuda_gen, device="cuda").to(dtype)
+    w = 1.0 + 0.2 * torch.randn(c, generator=cuda_gen, device="cuda")
+    b = 0.2 * torch.randn(c, generator=cuda_gen, device="cuda")
+    ab = None
+    if film:
+        ab = tuple((0.5 * torch.randn(n, 2 * c, generator=cuda_gen, device="cuda")).to(dtype)
+                   .chunk(2, dim=-1))
+    stats = gn.group_norm_stats(x, groups)
+    shards = [(u.contiguous(), v.contiguous())
+              for u, v in zip(x.chunk(2, dim=-1), dy.chunk(2, dim=-1))]
+    launches = (gn.group_norm_bwd_reduce.launches, gn.group_norm_bwd_dx.launches)
+    parts = [gn.group_norm_bwd_reduce(u, v, groups, *stats, w, b, 1e-5, True, ab)
+             for u, v in shards]
+    s1, s2 = (torch.stack(p).sum(dim=0) for p in zip(*parts))
+    dx = torch.cat([gn.group_norm_bwd_dx(u, v, groups, *stats, w, b, 1e-5, True, ab, s1, s2,
+                                         c // groups * t) for u, v in shards], dim=-1)
+    want = gn.group_norm_backward_plain(x, dy, groups, w, b, 1e-5, True, ab, stats)
+    assert (dx.float() - want[0].float()).abs().max().item() <= tol * max(
+        1.0, want[0].float().abs().max().item())
+    for got_s, want_s in zip((s1, s2), want[1:]):
+        assert ((got_s - want_s).abs().max() / want_s.abs().max()).item() <= 1e-4
+    assert gn.group_norm_bwd_reduce.launches == launches[0] + 2
+    assert gn.group_norm_bwd_dx.launches == launches[1] + 2

@@ -1,5 +1,5 @@
-"""Ranks of a gloo process group on the CPU for tests/test_torch_parallel.py
-and tests/test_torch_tensor_parallel.py.
+"""Ranks of a gloo process group on the CPU for tests/test_torch_parallel.py,
+tests/test_torch_tensor_parallel.py and tests/test_torch_sequence_parallel.py.
 
 ``run_group(world, task, *args)`` spawns ``world`` processes, each of which
 sets the launcher's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -430,6 +430,136 @@ def sampling_runs(rank: int, world: int, runs: List[List[Any]]) -> None:
             module.main(["--device", "cpu", *argv])
     finally:
         ModelBase.from_manifest = saved
+
+
+# ---------------------------------------------------- sequence parallelism
+
+
+def seq_module(kind: str) -> torch.nn.Module:
+    """The modules of the sequence-parallel checks, at JAX's test widths
+    (tests/test_sequence_parallel.py): the UNet encoder (base 4, two
+    levels, an out dilation 2); the UNet predictor with cond and labels
+    ("unet"), unconditional ("unet_plain", the samplers') and with labels
+    ("unet_labels", the train step's); WaveGrad at base 2, cond_mult 4."""
+    from vq_voice_swap_torch.models.wavegrad import WaveGradEncoder, WaveGradPredictor
+
+    unet = dict(base_channels=BASE, middle_dilations=(2,), **SHALLOW)
+    return {
+        "unet_encoder": lambda: UNetEncoder(base_channels=BASE, out_channels=8,
+                                            out_dilations=(2,), **SHALLOW),
+        "unet": lambda: UNetPredictor(cond_channels=8, num_labels=LABELS, **unet),
+        "unet_plain": lambda: UNetPredictor(**unet),
+        "unet_labels": lambda: UNetPredictor(num_labels=LABELS, **unet),
+        "wavegrad": lambda: WaveGradPredictor(base_channels=2, cond_mult=4, num_labels=LABELS),
+        "wavegrad_encoder": lambda: WaveGradEncoder(base_channels=2, cond_mult=4),
+    }[kind]()
+
+
+def _loaded(kind: str, state: Dict[str, np.ndarray]) -> torch.nn.Module:
+    model = seq_module(kind) if kind != "vqvae" else tiny_vqvae()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def seq_suite(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
+    """Every sequence-parallel check of one spawned world, each input the
+    whole sequence cut to this rank's shard; every output gathered whole.
+    ``spec``: "blocks", "models", "samplers", "convert", "train", "cli"
+    (see tests/test_torch_sequence_parallel.py)."""
+    import torch.distributed as dist
+
+    from vq_voice_swap_torch import long_audio_convert
+    from vq_voice_swap_torch.diffusion import Diffusion, make_schedule
+    from vq_voice_swap_torch.parallel import sequence as sq
+    from vq_voice_swap_torch.train import build_optimizer
+
+    mesh = sq.create_seq_mesh()
+    t = torch.from_numpy
+
+    def cut(x, axis=1):  # this rank's shard along ``axis``
+        return sq.shard_sequence(mesh, t(x).movedim(axis, 1)).movedim(1, axis).contiguous()
+
+    def whole(x, axis=1):
+        return sq.gather_sequence(mesh, x.movedim(axis, 1)).movedim(1, axis).detach().numpy()
+
+    out: Dict[str, Any] = {}
+    b = spec["blocks"]
+    out["conv"] = {d: whole(sq.seq_sharded_conv1d(mesh, cut(b["conv_x"], 2), t(b["conv_w"]),
+                                                  t(b["conv_b"]), dilation=d), 2)
+                   for d in b["dilations"]}
+    for key in ("gn", "gn_large"):
+        out[key] = whole(sq.seq_sharded_group_norm(
+            mesh, cut(b[key + "_x"], 2), t(b["gn_scale"]), t(b["gn_bias"]), b["groups"]), 2)
+    # The split backward: GroupNorm + FiLM + GELU, every input requiring grad.
+    x = cut(b["bwd_x"], 2).requires_grad_()
+    leaves = [t(b[k]).clone().requires_grad_() for k in ("gn_scale", "gn_bias", "ca", "cb")]
+    y = sq.seq_sharded_group_norm(mesh, x, leaves[0], leaves[1], b["groups"], use_gelu=True,
+                                  film=(leaves[2], leaves[3]))
+    (y * cut(b["bwd_dy"], 2)).sum().backward()
+    sums = torch.stack([torch.cat([v.grad.reshape(-1) for v in leaves])])
+    dist.all_reduce(sums)
+    out["gn_bwd"] = dict(dx=whole(x.grad, 2), leaves=sums[0].numpy())
+    out["pool"] = whole(sq.seq_sharded_avg_pool(mesh, cut(b["pool_x"], 2), 2), 2)
+    out["upsample"] = whole(sq.seq_sharded_upsample(mesh, cut(b["pool_x"], 2), 2), 2)
+    # halo_exchange's gradient: sum(halo(x) * w), w [R, N, C, Tl + left + right].
+    x = cut(b["halo_x"], 2).requires_grad_()
+    (sq.halo_exchange(x, *b["halo"], mesh) * t(b["halo_w"][rank])).sum().backward()
+    out["halo_grad"] = whole(x.grad, 2)
+    try:
+        sq.halo_exchange(x, x.shape[-1] + 1, 0, mesh)
+        out["wide_halo"] = "no error"
+    except ValueError as e:
+        out["wide_halo"] = str(e)
+
+    with torch.no_grad():
+        out["models"] = {}
+        for kind, (state, inputs) in spec["models"].items():
+            model = _loaded(kind, state)
+            args = {k: (cut(v) if k in ("x", "cond") else t(v)) for k, v in inputs.items()}
+            if kind.endswith("encoder"):
+                fn = (sq.seq_parallel_unet_encoder if kind.startswith("unet")
+                      else sq.seq_parallel_wavegrad_encoder)
+                got = fn(mesh, model, args["x"])
+            else:
+                got = sq.seq_parallel_predictor(mesh, model, **args)
+            out["models"][kind] = whole(got)
+
+        sp = spec["samplers"]
+        model, diffusion = _loaded("unet_plain", sp["state"]), Diffusion(make_schedule("exp"))
+        out["samplers"] = {}
+        for sampler in ("ddpm", "ddim", "dpmpp"):
+            gen = torch.Generator().manual_seed(sp["seed"])
+            got = sq.seq_parallel_sample(mesh, diffusion, model, cut(sp["x_T"]), sp["steps"],
+                                         gen, sampler=sampler, constrain=True)
+            out["samplers"][sampler] = whole(got)
+
+        cv = spec["convert"]
+        model = _loaded("vqvae", cv["state"])
+        gen = torch.Generator().manual_seed(cv["seed"])
+        got = sq.seq_parallel_vqvae_convert(mesh, model, cut(cv["x"]), gen,
+                                            labels=t(cv["labels"]), steps=cv["steps"],
+                                            sampler="dpmpp", constrain=True)
+        out["convert"] = whole(got)
+
+    tr = spec["train"]
+    model = _loaded("unet_labels", tr["state"])
+    opt = build_optimizer(model, lr=1e-3)
+    step = sq.make_seq_parallel_train_step(mesh, Diffusion(make_schedule("exp")), model, opt)
+    gen = torch.Generator().manual_seed(tr["seed"])
+    loss, losses = step(cut(tr["x"]), labels=t(tr["labels"]), generator=gen)
+    out["train"] = dict(loss=loss.item(), losses=losses.numpy(),
+                        grads={n: p.grad.numpy().copy() for n, p in model.named_parameters()},
+                        params={n: p.detach().numpy().copy()
+                                for n, p in model.named_parameters()})
+
+    saved = ModelBase.__dict__["from_manifest"]
+    ModelBase.from_manifest = classmethod(tiny_from_manifest)
+    try:
+        out["cli"] = long_audio_convert.main(spec["cli"] + ["--device", "cpu"])
+    finally:
+        ModelBase.from_manifest = saved
+    out["collectives"] = dict(sq.COLLECTIVES)
+    return out
 
 
 # ---------------------------------------------------------------- spawning

@@ -59,6 +59,16 @@
 //   order), then a dx launch that forms A_g, B_g per block in the same
 //   fixed order. x and dy are read twice: five passes.
 //
+// The two-kernel route's launches are two C entry points,
+// group_norm_bwd_reduce and group_norm_bwd_dx. Under sequence parallelism
+// (parallel/sequence.py) a group's span is cut over the ranks along T and
+// no launch sees the whole group: between the two, the caller sums the
+// per-row S1, S2 over the ranks (one all-reduce of [2, N, C] floats), and
+// the dx launch takes the group's element count over all ranks, cpg *
+// T_total, as the divisor of A_g and B_g. One device passes its own span,
+// cpg * T, as before. The count reaches the kernels as a float: exact below
+// 2^24 elements, within 2^-24 relative above.
+//
 // Both routes give the same bits on every call whatever order the blocks
 // run in: every sum has a fixed order, and no float atomics are used.
 
@@ -230,6 +240,7 @@ struct Args {
   int* tickets;          // two-kernel: [rows] zeroed counters (slices > 1)
   float* s1;             // [N * C]
   float* s2;
+  long long count;       // elements of a group over all its shards: A_g and B_g's divisor
 };
 
 // The film scale s = ca + 1 of channel ch of sample n (1 without FiLM).
@@ -450,7 +461,7 @@ group_norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     ka = warp_sum(ka);
     kb = warp_sum(kb);
     if (lane == 0) {
-      const float total = static_cast<float>(span_len);
+      const float total = static_cast<float>(args.count);
       ab[0] = ka / total;
       ab[1] = kb / total;
     }
@@ -621,7 +632,7 @@ group_norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* _
     ka = warp_sum(ka);
     kb = warp_sum(kb);
     if (lane == 0) {
-      const float count = static_cast<float>(args.cpg * args.t);
+      const float count = static_cast<float>(args.count);
       s_ab[0] = ka / count;
       s_ab[1] = kb / count;
     }
@@ -661,12 +672,16 @@ group_norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* _
 }
 
 template <typename T, int V>
-cudaError_t launch_two_kernel(const void* x, const void* dy, void* dx, int rows,
-                              const Args& args, cudaStream_t stream) {
+cudaError_t launch_reduce(const void* x, const void* dy, int rows, const Args& args,
+                          cudaStream_t stream) {
   group_norm_bwd_reduce_kernel<T, V><<<rows * args.slices, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), args);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t launch_dx(const void* x, const void* dy, void* dx, int rows, const Args& args,
+                      cudaStream_t stream) {
   const int tiles = static_cast<int>((args.t + TILE - 1) / TILE);
   group_norm_bwd_dx_kernel<T, V><<<rows * tiles, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), args, tiles);
@@ -676,9 +691,10 @@ cudaError_t launch_two_kernel(const void* x, const void* dy, void* dx, int rows,
 Args make_args(int c, long long t, int groups, int slices, long long chunk, float* part,
                int* tickets, const float* mean, const float* var, float eps,
                const float* weight, const float* bias, const void* film_a, const void* film_b,
-               int film_dtype, long long film_ld, int use_gelu, float* s1, float* s2) {
+               int film_dtype, long long film_ld, int use_gelu, float* s1, float* s2,
+               long long count) {
   return Args{c, groups, c / groups, t, mean, var, eps, weight, bias, film_a, film_b,
-              film_dtype, film_ld, use_gelu, slices, chunk, part, tickets, s1, s2};
+              film_dtype, film_ld, use_gelu, slices, chunk, part, tickets, s1, s2, count};
 }
 
 }  // namespace
@@ -721,7 +737,7 @@ extern "C" int group_norm_bwd_cluster(int dtype, const void* x, const void* dy, 
   if (spans == 0 || t == 0) return static_cast<int>(cudaGetLastError());
   const Args args = make_args(c, t, groups, cluster, chunk, nullptr, nullptr, mean, var, eps,
                               weight, bias, film_a, film_b, film_dtype, film_ld, use_gelu,
-                              s1, s2);
+                              s1, s2, (long long)(c / groups) * t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
@@ -734,16 +750,18 @@ extern "C" int group_norm_bwd_cluster(int dtype, const void* x, const void* dy, 
   return static_cast<int>(err);
 }
 
-// The two-kernel route: each row of T is split into `slices` slices of
-// `chunk` elements for the reduce; `part` holds rows * slices * 2 floats and
-// `tickets` rows zeroed ints when slices > 1. Launches both kernels.
-extern "C" int group_norm_bwd(int dtype, const void* x, const void* dy, void* dx, int n, int c,
-                              long long t, int groups, int slices, long long chunk, int vec,
-                              float* part, int* tickets, const float* mean, const float* var,
-                              float eps, const float* weight, const float* bias,
-                              const void* film_a, const void* film_b, int film_dtype,
-                              long long film_ld, int use_gelu, float* s1, float* s2,
-                              void* stream) {
+// The two-kernel route, for spans beyond a cluster: the reduce launch, then
+// the dx launch (one device passes the dx launch its own span as `count`).
+// The reduce writes the per-row S1 and S2 of this tensor; each row of T is
+// split into `slices` slices of `chunk` elements, and `part` holds rows *
+// slices * 2 floats and `tickets` rows zeroed ints when slices > 1.
+extern "C" int group_norm_bwd_reduce(int dtype, const void* x, const void* dy, int n, int c,
+                                     long long t, int groups, int slices, long long chunk,
+                                     int vec, float* part, int* tickets, const float* mean,
+                                     const float* var, float eps, const float* weight,
+                                     const float* bias, const void* film_a,
+                                     const void* film_b, int film_dtype, long long film_ld,
+                                     int use_gelu, float* s1, float* s2, void* stream) {
   if (slices < 1 || slices > MAX_SLICES || groups < 1 || c % groups ||
       (slices > 1 && (part == nullptr || tickets == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -752,15 +770,45 @@ extern "C" int group_norm_bwd(int dtype, const void* x, const void* dy, void* dx
   if (rows == 0 || t == 0) return static_cast<int>(cudaGetLastError());
   const Args args = make_args(c, t, groups, slices, chunk, part, tickets, mean, var, eps,
                               weight, bias, film_a, film_b, film_dtype, film_ld, use_gelu,
-                              s1, s2);
+                              s1, s2, (long long)(c / groups) * t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = vec ? launch_two_kernel<float, 4>(x, dy, dx, rows, args, s)
-              : launch_two_kernel<float, 1>(x, dy, dx, rows, args, s);
+    err = vec ? launch_reduce<float, 4>(x, dy, rows, args, s)
+              : launch_reduce<float, 1>(x, dy, rows, args, s);
   } else {
-    err = vec ? launch_two_kernel<__nv_bfloat16, 8>(x, dy, dx, rows, args, s)
-              : launch_two_kernel<__nv_bfloat16, 1>(x, dy, dx, rows, args, s);
+    err = vec ? launch_reduce<__nv_bfloat16, 8>(x, dy, rows, args, s)
+              : launch_reduce<__nv_bfloat16, 1>(x, dy, rows, args, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The dx launch, from the per-row S1 and S2 of the whole group (on one
+// device, the reduce's; under sequence parallelism, summed over the ranks),
+// `count` the group's elements over all its shards (cpg * T on one device).
+extern "C" int group_norm_bwd_dx(int dtype, const void* x, const void* dy, void* dx, int n,
+                                 int c, long long t, int groups, int vec, const float* mean,
+                                 const float* var, float eps, const float* weight,
+                                 const float* bias, const void* film_a, const void* film_b,
+                                 int film_dtype, long long film_ld, int use_gelu,
+                                 const float* s1, const float* s2, long long count,
+                                 void* stream) {
+  if (groups < 1 || c % groups || count < (long long)(c / groups) * t) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = n * c;
+  if (rows == 0 || t == 0) return static_cast<int>(cudaGetLastError());
+  const Args args = make_args(c, t, groups, 1, 0, nullptr, nullptr, mean, var, eps, weight,
+                              bias, film_a, film_b, film_dtype, film_ld, use_gelu,
+                              const_cast<float*>(s1), const_cast<float*>(s2), count);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = vec ? launch_dx<float, 4>(x, dy, dx, rows, args, s)
+              : launch_dx<float, 1>(x, dy, dx, rows, args, s);
+  } else {
+    err = vec ? launch_dx<__nv_bfloat16, 8>(x, dy, dx, rows, args, s)
+              : launch_dx<__nv_bfloat16, 1>(x, dy, dx, rows, args, s);
   }
   return static_cast<int>(err);
 }

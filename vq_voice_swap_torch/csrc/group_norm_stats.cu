@@ -22,6 +22,11 @@
 //   two-pass mean and M2 in registers, Chan-merged into its running (count,
 //   mean, M2) with one division per batch, none per element. Unaligned
 //   spans take the same path with one element per load.
+// - Counts. A batch's count (at most 32), mean and M2 are float; a running
+//   count is a double, exact for any span, so each merge weighs by exact
+//   counts past 2^24 elements, where a float count stops being exact (at
+//   4.4 minutes of 16 kHz audio at the first up level of a unet64, whose
+//   groups span four channels).
 // - Merge. Warps merge by shuffle, then through shared memory, in a fixed
 //   tree. Each block of a multi-slice span writes its partial; the last
 //   block to finish (a per-span ticket: __threadfence + atomicAdd, reset by
@@ -50,17 +55,18 @@ constexpr int TILE = THREADS * BATCH;   // span elements one block pass reads
 constexpr int MAX_SLICES = 256;         // block partials of one span
 
 struct Stat {
-  float n, mean, m2;
+  double n;  // an exact integer count, whatever the span
+  float mean, m2;
 };
 
-// Chan's merge of b into a. n is an exact integer count (spans < 2^24).
+// Chan's merge of b into a.
 __device__ __forceinline__ void chan(Stat& a, const Stat& b) {
-  if (b.n == 0.0f) return;
-  const float n = a.n + b.n;
+  if (b.n == 0.0) return;
+  const double n = a.n + b.n;
   const float d = b.mean - a.mean;
-  const float r = b.n / n;
+  const float r = static_cast<float>(b.n / n);
   a.mean = a.mean + d * r;
-  a.m2 = a.m2 + b.m2 + d * d * a.n * r;
+  a.m2 = a.m2 + b.m2 + d * d * static_cast<float>(a.n) * r;
   a.n = n;
 }
 
@@ -116,7 +122,8 @@ struct Args {
   int slices;          // blocks per span
   long long chunk;     // span elements per slice, a multiple of 8
   int groups, cpg;     // G and C/G
-  float* part;         // [spans, slices, 3] block partials (slices > 1)
+  float* part;         // [spans, slices, 4] block partials (slices > 1): the
+                       // count as a double, then mean and M2
   int* tickets;        // [spans] zeroed counters
   const float* weight; // [C] or null: write (mean, var) instead
   const float* bias;
@@ -150,7 +157,7 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
   const T* p = x + span_id * args.span + start;
   const long long nvec = start < end ? (end - start) / V : 0;
 
-  Stat acc{0.0f, 0.0f, 0.0f};
+  Stat acc{0.0, 0.0f, 0.0f};
   for (long long v0 = 0; v0 < nvec; v0 += (long long)THREADS * LOADS) {
     float vals[BATCH];
     int valid = 0;
@@ -171,8 +178,8 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
 #pragma unroll
     for (int j = 0; j < BATCH; ++j) s[j & 3] += vals[j];
     const float sum = (s[0] + s[1]) + (s[2] + s[3]);
-    const float count = static_cast<float>(valid * V);
-    const float mean = valid == LOADS ? sum * (1.0f / BATCH) : sum / count;
+    const int count = valid * V;
+    const float mean = valid == LOADS ? sum * (1.0f / BATCH) : sum / static_cast<float>(count);
     float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int j = 0; j < LOADS; ++j) {
@@ -182,7 +189,7 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
         if (j < valid) q[(j * V + e) & 3] = fmaf(d, d, q[(j * V + e) & 3]);
       }
     }
-    chan(acc, Stat{count, mean, (q[0] + q[1]) + (q[2] + q[3])});
+    chan(acc, Stat{static_cast<double>(count), mean, (q[0] + q[1]) + (q[2] + q[3])});
   }
 
   // Block merge: a shuffle tree in each warp, then across warps.
@@ -194,7 +201,7 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
   if (lane == 0) warp_stat[warp] = acc;
   __syncthreads();
   if (warp == 0) {
-    acc = lane < WARPS ? warp_stat[lane] : Stat{0.0f, 0.0f, 0.0f};
+    acc = lane < WARPS ? warp_stat[lane] : Stat{0.0, 0.0f, 0.0f};
 #pragma unroll
     for (int o = WARPS / 2; o > 0; o >>= 1) {
       const Stat other = shfl_down(acc, o);
@@ -205,10 +212,10 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
   if (args.slices > 1) {
     // Publish this slice's partial; the last block of the span merges them.
     if (tid == 0) {
-      float* out = args.part + (span_id * (long long)args.slices + slice) * 3;
-      out[0] = acc.n;
-      out[1] = acc.mean;
-      out[2] = acc.m2;
+      float* out = args.part + (span_id * (long long)args.slices + slice) * 4;
+      *reinterpret_cast<double*>(out) = acc.n;
+      out[2] = acc.mean;
+      out[3] = acc.m2;
       __threadfence();
       const int prev = atomicAdd(args.tickets + span_id, 1);
       is_last = prev == args.slices - 1;
@@ -217,10 +224,10 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
     __syncthreads();
     if (!is_last) return;
     __threadfence();
-    const float* part = args.part + span_id * (long long)args.slices * 3;
+    const float* part = args.part + span_id * (long long)args.slices * 4;
     for (int s = tid; s < args.slices; s += THREADS) {
-      slice_stat[s] = Stat{__ldcg(part + 3 * s), __ldcg(part + 3 * s + 1),
-                           __ldcg(part + 3 * s + 2)};
+      slice_stat[s] = Stat{__ldcg(reinterpret_cast<const double*>(part + 4 * s)),
+                           __ldcg(part + 4 * s + 2), __ldcg(part + 4 * s + 3)};
     }
     __syncthreads();
     if (tid == 0) {
@@ -231,7 +238,7 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
 
   if (tid == 0) {
     const float mean = acc.mean;
-    const float var = acc.m2 / acc.n;
+    const float var = acc.m2 / static_cast<float>(acc.n);
     if (args.weight == nullptr) {
       args.out_mean[span_id] = mean;
       args.out_a[span_id] = var;
@@ -279,7 +286,7 @@ extern "C" int group_norm_stats_max_slices() { return MAX_SLICES; }
 // x [N, C, T] contiguous, float32 (dtype 0) or bfloat16 (dtype 1); `vec`
 // selects 16-byte loads (x 16-byte aligned, span and chunk multiples of 8).
 // Spans = N * groups, each split into `slices` slices of `chunk` elements;
-// `part` holds spans * slices * 3 floats when slices > 1, `tickets` spans
+// `part` holds spans * slices * 4 floats, 8-byte aligned, when slices > 1, `tickets` spans
 // zeroed ints. With `weight` (and `bias`, [C] float32): writes the folded
 // (mean, a, b) of channel c of sample n at n * out_ld + c, FiLM optional
 // (film_dtype as dtype, row stride film_ld), and, when `out_group` is not

@@ -11,6 +11,10 @@ float32 grid times as the JAX samplers apply it, and an optional guidance
 DDPM step shifts its posterior mean by sigma^2 * grad, DDIM and DPM++
 shift epsilon by -sqrt(1 - abar_t) * grad, as the JAX samplers do. Without
 it every sampler computes exactly what it computed before guidance.
+Under sequence parallelism (``parallel/sequence.py``) x is a shard of the
+time axis: each noise draw is the whole sequence's, sliced
+(``draw_normal``), and the x0 constraint's mean is the whole sequence's
+(``seq_row_mean``).
 """
 
 from dataclasses import dataclass
@@ -19,6 +23,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.sequence import draw_normal, seq_row_mean
 from .schedules import Schedule
 from .warp import TimeWarp
 
@@ -64,8 +69,7 @@ def _step_time(i: int, steps: int, warp: Optional[TimeWarp]) -> Tuple[float, flo
 
 def _clamp_x0(x0: torch.Tensor) -> torch.Tensor:
     """Subtract the per-sequence mean over all non-batch axes, then clamp."""
-    x0_mean = x0.mean(dim=tuple(range(1, x0.ndim)), keepdim=True)
-    return torch.clamp(x0 - x0_mean, -1.0, 1.0)
+    return torch.clamp(x0 - seq_row_mean(x0), -1.0, 1.0)
 
 
 @dataclass(frozen=True)
@@ -163,10 +167,7 @@ class Diffusion:
             if i == steps - 1:
                 noise = torch.zeros_like(x_t)
             else:
-                noise = torch.randn(
-                    x_T.shape, generator=generator, dtype=x_T.dtype,
-                    device=x_T.device,
-                )
+                noise = draw_normal(x_T.shape, generator, x_T.dtype, x_T.device)
             x_t = self.ddpm_previous(
                 x_t, ts, dt, eps, noise, sigma_large=sigma_large,
                 constrain=constrain, cond_fn=cond_fn,
@@ -227,10 +228,7 @@ class Diffusion:
             )
             eps = predictor(x_t, ts)
             if eta and i < steps - 1:
-                noise = torch.randn(
-                    x_T.shape, generator=generator, dtype=x_T.dtype,
-                    device=x_T.device,
-                )
+                noise = draw_normal(x_T.shape, generator, x_T.dtype, x_T.device)
             else:
                 noise = torch.zeros_like(x_t)
             x_t = self.ddim_previous(
@@ -312,9 +310,7 @@ class Diffusion:
                 device=x.device,
             )
         if noise is None:
-            noise = torch.randn(
-                x.shape, generator=generator, dtype=x.dtype, device=x.device
-            )
+            noise = draw_normal(x.shape, generator, x.dtype, x.device)
         samples = self.sample_q(x, ts, epsilon=noise)
         noise_pred = predictor(samples, ts)
         sq = torch.square(noise - noise_pred)

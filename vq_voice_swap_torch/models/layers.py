@@ -16,7 +16,12 @@ GELU and FiLM chains, never a convolution.
 Under tensor parallelism (``parallel/tensor.py``) the funnels ``conv1d``
 and ``linear`` run a layer whose weight was cut over the model group
 column-parallel, and ``GroupNorm`` and ``embedding`` gather their cut
-leaves whole at use; a model that was not cut runs as before.
+leaves whole at use; a model that was not cut runs as before. Under
+sequence parallelism (``parallel/sequence.py``'s ``sequence_parallel``)
+the activations are shards of the time axis: ``conv1d`` exchanges halos
+with the neighbouring ranks, ``GroupNorm`` merges its statistics over
+them and ``nearest_resize_1d`` repeats within the shard; pooling and
+upsampling are shard-local as they are.
 """
 
 import math
@@ -32,6 +37,8 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.group_norm import group_norm
+from ..parallel.sequence import (active_mesh, seq_sharded_conv1d, seq_sharded_group_norm,
+                                 seq_sharded_resize)
 from ..parallel.tensor import column_parallel, cut_axis, whole
 
 __all__ = [
@@ -76,7 +83,15 @@ def channels_first(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
     """Run ``conv`` on [N, C, T] in x's dtype (column-parallel when its
-    weight was cut over the model group)."""
+    weight was cut over the model group; on a time shard with its halos
+    under sequence parallelism)."""
+    mesh = active_mesh()
+    if mesh is not None:
+        if cut_axis(conv, "weight") is not None:
+            raise ValueError("sequence parallelism does not compose with tensor parallelism")
+        return seq_sharded_conv1d(mesh, x, conv.weight, conv.bias, stride=conv.stride[0],
+                                  dilation=conv.dilation[0])
+
     def run(x):
         bias = None if conv.bias is None else conv.bias.to(x.dtype)
         return F.conv1d(
@@ -147,6 +162,11 @@ class GroupNorm(nn.Module):
         x: torch.Tensor,
         film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
+        mesh = active_mesh()
+        if mesh is not None:
+            return seq_sharded_group_norm(mesh, x, whole(self.norm, "weight"),
+                                          whole(self.norm, "bias"), self.norm.num_groups,
+                                          self.norm.eps, self.use_gelu, film)
         return group_norm(
             x, whole(self.norm, "weight"), whole(self.norm, "bias"), self.norm.num_groups,
             self.norm.eps, self.use_gelu, film,
@@ -197,7 +217,11 @@ def nearest_upsample_1d(x: torch.Tensor, factor: int) -> torch.Tensor:
 def nearest_resize_1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
     """Nearest-neighbour resize of [N, C, T] to [N, C, out_len], with the
     source index floor(i * (T / out_len)) computed in float32 as the JAX
-    package computes it."""
+    package computes it. Under sequence parallelism, a per-shard repeat
+    (an integer factor)."""
+    mesh = active_mesh()
+    if mesh is not None:
+        return seq_sharded_resize(mesh, x, out_len)
     t = x.shape[-1]
     if t == out_len:
         return x

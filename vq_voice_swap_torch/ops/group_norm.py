@@ -38,10 +38,14 @@ thread-block cluster per (n, group) that reads x and dy once into shared
 memory, or, for spans beyond a cluster's capacity, a reduce launch and a dx
 launch. Both give dx in x's dtype and the per-row sums S1 = sum_t dz,
 S2 = sum_t dz * xhat, from which ``group_norm_param_grads`` forms the
-parameter gradients. ``group_norm`` takes ``GroupNormFunction`` only on
-CUDA, with grad enabled and an input that requires it, so the no-grad
-paths launch exactly the two forward kernels. On the CPU autograd runs
-through the plain versions.
+parameter gradients. The two-kernel route's launches also have wrappers
+of their own, ``group_norm_bwd_reduce`` (S1, S2 of this tensor) and
+``group_norm_bwd_dx`` (dx from S1, S2 and the group's element count), for
+a group cut over ranks (``parallel/sequence.py``), whose S1 and S2 are
+summed over the ranks between them. ``group_norm`` takes
+``GroupNormFunction`` only on CUDA, with grad enabled and an input that
+requires it, so the no-grad paths launch exactly the two forward kernels.
+On the CPU autograd runs through the plain versions.
 
 Wrappers use the plain versions for CPU tensors and launch the kernels for
 CUDA tensors, with no fallback between them; each counts its launches.
@@ -63,6 +67,10 @@ __all__ = [
     "GroupNormFunction",
     "group_norm_backward",
     "group_norm_backward_plain",
+    "group_norm_bwd_reduce",
+    "group_norm_bwd_reduce_plain",
+    "group_norm_bwd_dx",
+    "group_norm_bwd_dx_plain",
     "bwd_route",
     "BwdRoute",
     "group_norm_param_grads",
@@ -83,7 +91,6 @@ APPLY_BLOCK = 4096  # largest T-block of one apply program
 STATS_TILE = 256 * 32
 STATS_MAX_SLICES = 256
 STATS_BLOCKS_PER_SM = 4
-MAX_SPAN = 1 << 24  # float32 counts stay exact below this
 # The backward (csrc/group_norm_bwd.cu reports its limits; _bwd_library()
 # checks them). Cluster route: at most BWD_CLUSTER_MAX blocks a span, each
 # holding at most BWD_BLOCK_ELEMS elements in at most BWD_MAX_SMEM bytes of
@@ -189,6 +196,67 @@ def gelu_grad(u: torch.Tensor) -> torch.Tensor:
     return cdf + u * 0.3989422804014327 * torch.exp(-0.5 * u * u)
 
 
+def _bwd_terms(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film):
+    """Float32 (dz, xhat, rstd [N, C, 1]) of the backward at x for dy."""
+    rep = x.shape[1] // num_groups
+    mean_c, a, b = fold_affine(mean, var, weight, bias, eps, film)
+    rstd = torch.rsqrt(var + eps).repeat_interleave(rep, dim=1)[..., None]
+    d = x.float() - mean_c[..., None]
+    dz = dy.float()
+    if use_gelu:
+        dz = dz * gelu_grad(d * a[..., None] + b[..., None])
+    return dz, d * rstd, rstd
+
+
+def group_norm_bwd_reduce_plain(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    num_groups: int,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    use_gelu: bool,
+    film: Film = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``group_norm_bwd_reduce`` in float32: the per-row S1 = sum_t dz and
+    S2 = sum_t dz * xhat [N, C] of x and dy, from the group (mean, var)."""
+    dz, xhat, _ = _bwd_terms(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film)
+    return dz.sum(dim=-1), (dz * xhat).sum(dim=-1)
+
+
+def group_norm_bwd_dx_plain(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    num_groups: int,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    use_gelu: bool,
+    film: Film,
+    s1: torch.Tensor,
+    s2: torch.Tensor,
+    count: int,
+) -> torch.Tensor:
+    """``group_norm_bwd_dx`` in float32: dx in x's dtype from the group's
+    per-row S1, S2 [N, C] and its element count ``count``."""
+    n, c, _ = x.shape
+    rep = c // num_groups
+    dz, xhat, rstd = _bwd_terms(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu,
+                                film)
+    k = weight.float() * (1.0 if film is None else film[0].float() + 1.0)
+    k = k.expand(n, c)
+    ga = (k * s1).view(n, num_groups, rep).sum(dim=-1) / count
+    gb = (k * s2).view(n, num_groups, rep).sum(dim=-1) / count
+    ga = ga.repeat_interleave(rep, dim=1)[..., None]
+    gb = gb.repeat_interleave(rep, dim=1)[..., None]
+    dx = rstd * (dz * k[..., None] - ga - xhat * gb)
+    return dx.to(x.dtype)
+
+
 def group_norm_backward_plain(
     x: torch.Tensor,
     dy: torch.Tensor,
@@ -203,27 +271,11 @@ def group_norm_backward_plain(
     """``group_norm_backward`` step by step in float32: (dx in x's dtype,
     S1, S2 [N, C]) for y = act((x - mean) * a + b) of ``fold_affine``, from
     the group (mean, var) ``stats`` of the forward, or computed from x."""
-    n, c, t = x.shape
-    rep = c // num_groups
     mean, var = group_stats_plain(x, num_groups) if stats is None else stats
-    mean_c, a, b = fold_affine(mean, var, weight, bias, eps, film)
-    rstd = torch.rsqrt(var + eps).repeat_interleave(rep, dim=1)[..., None]
-    d = x.float() - mean_c[..., None]
-    xhat = d * rstd
-    dz = dy.float()
-    if use_gelu:
-        dz = dz * gelu_grad(d * a[..., None] + b[..., None])
-    s1 = dz.sum(dim=-1)
-    s2 = (dz * xhat).sum(dim=-1)
-    k = weight.float() * (1.0 if film is None else film[0].float() + 1.0)
-    k = k.expand(n, c)
-    count = rep * t
-    ga = (k * s1).view(n, num_groups, rep).sum(dim=-1) / count
-    gb = (k * s2).view(n, num_groups, rep).sum(dim=-1) / count
-    ga = ga.repeat_interleave(rep, dim=1)[..., None]
-    gb = gb.repeat_interleave(rep, dim=1)[..., None]
-    dx = rstd * (dz * k[..., None] - ga - xhat * gb)
-    return dx.to(x.dtype), s1, s2
+    args = (x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film)
+    s1, s2 = group_norm_bwd_reduce_plain(*args)
+    count = x.shape[1] // num_groups * x.shape[2]
+    return group_norm_bwd_dx_plain(*args, s1, s2, count), s1, s2
 
 
 def group_norm_param_grads(
@@ -370,11 +422,14 @@ def _bwd_library():
         if lib.group_norm_bwd_cluster_smem(cpg, chunk) != _bwd_cluster_smem(cpg, chunk):
             raise RuntimeError("csrc/group_norm_bwd.cu: a cluster block's shared memory "
                                "differs from the wrapper's _bwd_cluster_smem")
-    lib.group_norm_bwd.argtypes = [
-        i, p, p, p, i, i, ll, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, p, p, i, ll,
-        i, p, p, p,
+    lib.group_norm_bwd_reduce.argtypes = [
+        i, p, p, i, i, ll, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, p, p, i, ll, i, p, p, p,
     ]
-    lib.group_norm_bwd.restype = i
+    lib.group_norm_bwd_reduce.restype = i
+    lib.group_norm_bwd_dx.argtypes = [
+        i, p, p, p, i, i, ll, i, i, p, p, ctypes.c_float, p, p, p, p, i, ll, i, p, p, ll, p,
+    ]
+    lib.group_norm_bwd_dx.restype = i
     lib.group_norm_bwd_cluster.argtypes = [
         i, p, p, p, i, i, ll, i, i, ll, i, p, p, ctypes.c_float, p, p, p, p, i, ll, i, p, p, p,
     ]
@@ -396,9 +451,6 @@ def _launch_stats(x, num_groups, out_mean, out_a, out_b, out_ld,
     """One launch of the statistics kernel (see csrc/group_norm_stats.cu)."""
     n, c, t = x.shape
     spans, span = n * num_groups, (c // num_groups) * t
-    if span >= MAX_SPAN:
-        raise ValueError(f"GroupNorm group of {span} elements: the kernel takes "
-                         f"fewer than {MAX_SPAN}")
     target = _sm_count(x.device) * STATS_BLOCKS_PER_SM
     slices = max(1, min(target // max(spans, 1), -(-span // STATS_TILE), STATS_MAX_SLICES))
     chunk = -(-span // slices)
@@ -407,7 +459,7 @@ def _launch_stats(x, num_groups, out_mean, out_a, out_b, out_ld,
     vec = span % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
     part = None
     if slices > 1:
-        part = torch.empty(spans * slices * 3, dtype=torch.float32, device=x.device)
+        part = torch.empty(spans * slices * 4, dtype=torch.float32, device=x.device)
     ca = cb = None
     film_code, film_ld = 0, 0
     if film is not None:
@@ -527,6 +579,15 @@ def group_norm_backward(
     (``group_norm_coeffs(..., stats=True)``); without it the card first runs
     the statistics kernel. On the card, the backward kernel by the route of
     ``bwd_route``: one launch, or two beyond a cluster's capacity."""
+    _check_bwd(x, dy, num_groups, weight, bias, film, stats)
+    if x.device.type == "cpu":
+        return group_norm_backward_plain(x, dy, num_groups, weight, bias, eps, use_gelu, film,
+                                         stats)
+    mean, var = group_norm_stats(x, num_groups) if stats is None else stats
+    return _launch_bwd(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film)
+
+
+def _check_bwd(x, dy, num_groups, weight, bias, film, stats, sums=None) -> None:
     _check_x(x)
     _check_groups(x, num_groups)
     _check_coeffs(x, weight, bias, film, None)
@@ -535,18 +596,125 @@ def group_norm_backward(
                          f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
     if not dy.is_contiguous():
         raise ValueError("dy must be contiguous")
-    if stats is not None:
-        want = (x.shape[0], num_groups)
-        for v in stats:
+    for name, vals, want in (("stats", stats, (x.shape[0], num_groups)),
+                             ("S1 and S2", sums, tuple(x.shape[:2]))):
+        for v in vals or ():
             if (v.shape != want or v.dtype != torch.float32 or v.device != x.device
                     or not v.is_contiguous()):
-                raise ValueError(f"stats must be contiguous float32 {want} on {x.device}, "
+                raise ValueError(f"{name} must be contiguous float32 {want} on {x.device}, "
                                  f"got {v.dtype} {tuple(v.shape)} on {v.device}")
+
+
+def _bwd_args(mean, var, weight, bias, eps, use_gelu, film):
+    """(the float32 affine to keep alive until the launch is queued, the C
+    arguments from the statistics to the GELU flag)."""
+    ca = cb = None
+    film_code, film_ld = 0, 0
+    if film is not None:
+        ca, cb = film
+        film_code, film_ld = _DTYPE_CODE[ca.dtype], ca.stride(0)
+    w32, b32 = weight.float().contiguous(), bias.float().contiguous()
+    return (w32, b32), (mean.data_ptr(), var.data_ptr(), float(eps), w32.data_ptr(),
+                        b32.data_ptr(), _ptr(ca), _ptr(cb), film_code, film_ld, int(use_gelu))
+
+
+def _vec(t: int, *tensors: torch.Tensor) -> bool:
+    """16-byte accesses: T a multiple of 16 bytes, every tensor aligned."""
+    return t % (16 // tensors[0].element_size()) == 0 and all(
+        v.data_ptr() % 16 == 0 for v in tensors)
+
+
+def _reduce_launch(x, dy, num_groups, slices, chunk, args, sums, stream) -> None:
+    """One launch of the reduce kernel: the per-row S1, S2 of x and dy into
+    ``sums`` [2, N, C]; a row split over several blocks merges through a
+    per-row ticket."""
+    n, c, t = x.shape
+    part = ticket = None
+    if slices > 1:
+        part = torch.empty(n * c * slices * 2, dtype=torch.float32, device=x.device)
+        ticket = tickets(stream, n * c)
+    with torch.cuda.device(x.device):
+        err = _bwd_library().group_norm_bwd_reduce(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), n, c, t, num_groups, slices,
+            chunk, int(_vec(t, x, dy)), _ptr(part), _ptr(ticket), *args, sums[0].data_ptr(),
+            sums[1].data_ptr(), stream.cuda_stream)
+    if err:
+        raise RuntimeError(f"group_norm_bwd_reduce kernel launch failed: CUDA error {err}")
+
+
+def _dx_launch(x, dy, dx, num_groups, args, s1, s2, count, stream) -> None:
+    """One launch of the dx kernel, from the group's S1, S2 and count."""
+    n, c, t = x.shape
+    with torch.cuda.device(x.device):
+        err = _bwd_library().group_norm_bwd_dx(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, t,
+            num_groups, int(_vec(t, x, dy, dx)), *args, s1.data_ptr(), s2.data_ptr(),
+            int(count), stream.cuda_stream)
+    if err:
+        raise RuntimeError(f"group_norm_bwd_dx kernel launch failed: CUDA error {err}")
+
+
+def group_norm_bwd_reduce(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    num_groups: int,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    use_gelu: bool,
+    film: Film = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-row float32 S1 = sum_t dz and S2 = sum_t dz * xhat [N, C] of
+    x and dy, from the group (mean, var) [N, G] of the whole group (which
+    may span other ranks' shards of x): the two-kernel route's reduce
+    launch alone on the card."""
+    _check_bwd(x, dy, num_groups, weight, bias, film, (mean, var))
     if x.device.type == "cpu":
-        return group_norm_backward_plain(x, dy, num_groups, weight, bias, eps, use_gelu, film,
-                                         stats)
-    mean, var = group_norm_stats(x, num_groups) if stats is None else stats
-    return _launch_bwd(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film)
+        return group_norm_bwd_reduce_plain(x, dy, num_groups, mean, var, weight, bias, eps,
+                                           use_gelu, film)
+    sums = torch.empty((2, *x.shape[:2]), dtype=torch.float32, device=x.device)
+    keep, args = _bwd_args(mean, var, weight, bias, eps, use_gelu, film)
+    _reduce_launch(x, dy, num_groups, *bwd_slices(x), args, sums,
+                   torch.cuda.current_stream(x.device))
+    del keep
+    group_norm_bwd_reduce.launches += 1
+    return sums[0], sums[1]
+
+
+def group_norm_bwd_dx(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    num_groups: int,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    use_gelu: bool,
+    film: Film,
+    s1: torch.Tensor,
+    s2: torch.Tensor,
+    count: int,
+) -> torch.Tensor:
+    """dx in x's dtype from the whole group's per-row S1, S2 [N, C] (this
+    tensor's from ``group_norm_bwd_reduce``, or their sum over the ranks
+    that hold the group's shards) and ``count``, the group's elements over
+    all its shards (C/G * T on one device): the two-kernel route's dx
+    launch alone on the card."""
+    _check_bwd(x, dy, num_groups, weight, bias, film, (mean, var), (s1, s2))
+    if count < x.shape[1] // num_groups * x.shape[2]:
+        raise ValueError(f"a group of {count} elements is smaller than this shard's")
+    if x.device.type == "cpu":
+        return group_norm_bwd_dx_plain(x, dy, num_groups, mean, var, weight, bias, eps,
+                                       use_gelu, film, s1, s2, count)
+    dx = torch.empty_like(x)
+    keep, args = _bwd_args(mean, var, weight, bias, eps, use_gelu, film)
+    _dx_launch(x, dy, dx, num_groups, args, s1, s2, count, torch.cuda.current_stream(x.device))
+    del keep
+    group_norm_bwd_dx.launches += 1
+    return dx
 
 
 class BwdRoute(NamedTuple):
@@ -618,51 +786,34 @@ def _launch_bwd(x, dy, num_groups, mean, var, weight, bias, eps, use_gelu, film,
     (default ``bwd_route``); counts each launch in ``group_norm_backward``
     and in its route's launcher."""
     route = route or bwd_route(x, num_groups)
-    n, c, t = x.shape
     dx = torch.empty_like(x)
-    sums = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
-    vec = (t % (16 // x.element_size()) == 0
-           and all(v.data_ptr() % 16 == 0 for v in (x, dy, dx)))
-    ca = cb = None
-    film_code, film_ld = 0, 0
-    if film is not None:
-        ca, cb = film
-        film_code, film_ld = _DTYPE_CODE[ca.dtype], ca.stride(0)
-    w32, b32 = weight.float().contiguous(), bias.float().contiguous()
-    stream = torch.cuda.current_stream(x.device)
-    tail = (mean.data_ptr(), var.data_ptr(), float(eps), w32.data_ptr(), b32.data_ptr(),
-            _ptr(ca), _ptr(cb), film_code, film_ld, int(use_gelu), sums[0].data_ptr(),
-            sums[1].data_ptr(), stream.cuda_stream)
-    head = (_DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, t,
-            num_groups, route.blocks, route.chunk, int(vec))
+    sums = torch.empty((2, *x.shape[:2]), dtype=torch.float32, device=x.device)
+    keep, args = _bwd_args(mean, var, weight, bias, eps, use_gelu, film)
     launcher = _bwd_cluster if route.name == "cluster" else _bwd_two_kernel
-    launcher(x, stream, head, tail)
+    launcher(x, dy, dx, num_groups, route, args, sums, torch.cuda.current_stream(x.device))
+    del keep
     return dx, sums[0], sums[1]
 
 
-def _bwd_cluster(x, stream, head, tail) -> None:
+def _bwd_cluster(x, dy, dx, num_groups, route, args, sums, stream) -> None:
     """One launch of the cluster kernel."""
+    n, c, t = x.shape
     with torch.cuda.device(x.device):
-        err = _bwd_library().group_norm_bwd_cluster(*head, *tail)
+        err = _bwd_library().group_norm_bwd_cluster(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, t,
+            num_groups, route.blocks, route.chunk, int(_vec(t, x, dy, dx)), *args,
+            sums[0].data_ptr(), sums[1].data_ptr(), stream.cuda_stream)
     if err:
         raise RuntimeError(f"group_norm_bwd_cluster kernel launch failed: CUDA error {err}")
     _bwd_cluster.launches += 1
     group_norm_backward.launches += 1
 
 
-def _bwd_two_kernel(x, stream, head, tail) -> None:
-    """The reduce and dx launches; a row split over several reduce blocks
-    merges through a per-row ticket."""
-    n, c, slices = head[4], head[5], head[8]
-    rows = n * c
-    part = ticket = None
-    if slices > 1:
-        part = torch.empty(rows * slices * 2, dtype=torch.float32, device=x.device)
-        ticket = tickets(stream, rows)
-    with torch.cuda.device(x.device):
-        err = _bwd_library().group_norm_bwd(*head, _ptr(part), _ptr(ticket), *tail)
-    if err:
-        raise RuntimeError(f"group_norm_bwd kernel launch failed: CUDA error {err}")
+def _bwd_two_kernel(x, dy, dx, num_groups, route, args, sums, stream) -> None:
+    """The reduce and dx launches, the group's count this tensor's."""
+    _reduce_launch(x, dy, num_groups, route.blocks, route.chunk, args, sums, stream)
+    count = x.shape[1] // num_groups * x.shape[2]
+    _dx_launch(x, dy, dx, num_groups, args, sums[0], sums[1], count, stream)
     _bwd_two_kernel.launches += 2
     group_norm_backward.launches += 2
 
@@ -671,6 +822,8 @@ group_norm_coeffs.launches = 0
 group_norm_stats.launches = 0
 group_norm_apply.launches = 0
 group_norm_backward.launches = 0
+group_norm_bwd_reduce.launches = 0
+group_norm_bwd_dx.launches = 0
 _bwd_cluster.launches = 0
 _bwd_two_kernel.launches = 0
 

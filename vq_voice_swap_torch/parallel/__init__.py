@@ -2,8 +2,9 @@
 ``torch.distributed`` (counterpart of the JAX package's ``parallel/``):
 ``dist`` starts the ranks of a launched run, lays them out as a (data,
 model) grid and holds the train step's collectives, ``fsdp`` shards the
-model, its EMAs and the optimizer's moments over the data rows, and
-``tensor`` cuts them over the model columns."""
+model, its EMAs and the optimizer's moments over the data rows,
+``tensor`` cuts them over the model columns, and ``sequence`` cuts the
+audio's time axis over the ranks."""
 
 from .dist import (GradBuffer, Grid, StepSync, agree, broadcast_from_primary, data_group,
                    data_rank, data_size, gather_data_rows, grid, init_distributed, init_grid,
@@ -11,6 +12,7 @@ from .dist import (GradBuffer, Grid, StepSync, agree, broadcast_from_primary, da
 from .fsdp import (fsdp_placements, full_tensor, rebuild_optimizer, shard_like,
                    shard_model_fsdp, shard_optimizer_like, shard_params_like,
                    shard_train_state)
+from .sequence import SEQ_AXIS, SeqMesh, create_seq_mesh, sequence_parallel
 from .tensor import (MODEL_AXIS, cut_axes, full_tensor_tp, global_tensor, shard_like_tp,
                      shard_model_tp, tp_placements)
 
@@ -18,9 +20,12 @@ __all__ = [
     "GradBuffer",
     "Grid",
     "MODEL_AXIS",
+    "SEQ_AXIS",
+    "SeqMesh",
     "StepSync",
     "agree",
     "broadcast_from_primary",
+    "create_seq_mesh",
     "cut_axes",
     "data_group",
     "data_rank",
@@ -45,6 +50,7 @@ __all__ = [
     "shard_model_tp",
     "shard_optimizer_like",
     "shard_params_like",
+    "sequence_parallel",
     "shard_train_state",
     "tp_placements",
     "world_size",
