@@ -62,7 +62,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    them, against the plain backward of the whole input at [2, 128, 64000]
    and [3, 20, 334], at one shard the two-kernel route's bits, timed at
    [2, 128, 64000] f32 beside its bound, the one-device route, the plain
-   version and native_group_norm_backward. Every ticket counter
+   version and native_group_norm_backward. The int8 serving path's
+   kernels against their plain versions, bit for bit: the int8
+   convolution (CUDA, int8 tensor cores) at [16, 64, 64000] 64 -> 64, 3
+   taps, dilations 1 and 2 (f32 and bf16 out), [16, 128, 64000] 128 -> 64,
+   the 1x1 128 -> 64 projection with a per-channel scale, [16, 128, 16000]
+   128 -> 128 and [3, 8, 1000] -> 12 at dilation 32 (the plain version a
+   float64 convolution of the codes, exact); quantize (CUDA) of f32, bf16
+   and zero input; the GroupNorm statistics and apply kernels' int8 modes
+   with a per-tensor and a per-channel scale (1e-4); each timed beside its
+   bound and plain version (the bf16 cuDNN conv1d of the same shape
+   printed as a different function, for scale). Every ticket counter
    (ops/tickets.py) is 0 after this phase, after phase 4 and after the
    last.
 3. Main paths, each with every launch count set to 0 just before it and
@@ -178,10 +188,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 8. Tensor parallelism (``tensor_parallel_paths``): one torchrun launch of
    4 gloo ranks sharing the card, 2 data rows x 2 model columns, each rank
    through the CLIs' ``main`` or the train loop with --tensor-parallel 2:
-   phase 3's swap (f32, TF32 off, 10 DPM++ steps; codes equal, samples
+   phase 3's swap (f32, TF32 off, 4 DPM++ steps; codes equal, samples
    within 1e-3 of the world-1 run's largest magnitude), bf16 sampling at
-   --fuse-levels 2 (2 samples split over the data rows, 5 steps; the
-   world-1 files, within 1e-1), the bf16 flagship at global batch 4 for 3
+   --fuse-levels 2 (2 samples split over the data rows, 3 steps; the
+   world-1 files, within 1e-1), the bf16 flagship at global batch 4 for 2
    steps with deterministic algorithms, with and without --fsdp (losses
    within 1e-2 of the world-1 run's), one more profiled step; every
    rank's launches equal to the world-1 run's, state bytes a rank equal to
@@ -193,7 +203,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    off, 10 DPM++ steps; encoder outputs within 1e-4 and samples within
    1e-3 of the world-1 run's largest magnitude, codes equal but at
    near-ties, two codes' distances within 1e-4 relative, the samples then
-   held to one device's decode of the sharded run's codes) and 3 steps of
+   held to one device's decode of the sharded run's codes) and 2 steps of
    ``make_seq_parallel_train_step`` on the seeded unet64 diffusion model
    at batch 2 of 16 s (losses within 1e-3 relative), each beside its
    world-1 run in this process (which converts the clip on one device,
@@ -201,6 +211,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (statistics and apply a GroupNorm, the split reduce and dx a
    GroupNorm a train step, no coefficients, cluster or fused launch);
    wall seconds, RTF, peak memory and collectives a rank.
+10. int8 activations (``int8_serving_paths``): ``sample_diffusion --bf16
+   --act-int8 16000`` on phase 3's unconditional unet64 (16 x 4 s, 5 DPM++
+   steps) and ``sample_vqvae --act-int8 16000`` on phase 3's swap model
+   (f32, 10 DPM++ steps), each with its launches asserted from the code
+   (a unet64 call: 122 quantize launches, 50 int8 convolutions, 21 int8
+   and 110 float GroupNorms), then timed in turns with the same CLI
+   without --act-int8, two runs each (RTF of the medians); one predictor
+   call at batch 16
+   against the same call through the plain versions on the card (held by
+   the int8 path's own error: within 1.5 times the L2 distance between the
+   plain int8 and the float output, correlation above 0.995 f32 / 0.98
+   bf16), one under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   sync), and a profile of one int8 and one float call. Last,
+   ``sample_vqvae_uncond --act-int8 16000`` on the swap model (10 DPM++
+   steps), its launches asserted.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -264,10 +289,12 @@ from vq_voice_swap_torch.data.native import (  # noqa: E402
 from vq_voice_swap_torch.diffusion import make_warp  # noqa: E402
 from vq_voice_swap_torch.diffusion_model import DiffusionModel  # noqa: E402
 from vq_voice_swap_torch.models import make_encoder  # noqa: E402
+from vq_voice_swap_torch.models import layers  # noqa: E402
 from vq_voice_swap_torch.models.layers import ResBlock  # noqa: E402
 from vq_voice_swap_torch.ops import cuda_build  # noqa: E402
 from vq_voice_swap_torch.ops import fused_resblock as frb  # noqa: E402
 from vq_voice_swap_torch.ops import group_norm as gn  # noqa: E402
+from vq_voice_swap_torch.ops import qact  # noqa: E402
 from vq_voice_swap_torch.ops import vq_assign as vqa  # noqa: E402
 from vq_voice_swap_torch.ops.tickets import ticket_buffers  # noqa: E402
 from vq_voice_swap_torch.observe import Logger  # noqa: E402
@@ -288,6 +315,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense tensor cores
 TF32_FLOP_PER_S = 495e12  # dense tensor cores
+INT8_OP_PER_S = 1979e12  # dense tensor cores
 
 SAMPLE_RATE = 16000
 SAMPLES = 4 * SAMPLE_RATE
@@ -1029,6 +1057,171 @@ def check_fused_resblock(dev, gen):
     return entries
 
 
+def conv_int8_plain(qa, weight, bias, stride, dilation, dtype=None):
+    """``qact.conv1d_int8``'s plain version end to end: the weight quantized
+    as the wrapper quantizes it, then ``conv1d_int8_plain`` (a float64
+    convolution of the codes, exact, and the same float32 epilogue)."""
+    per_channel = qa.scale.ndim == 1
+    kq, w_scale = qact.quantize_weight(weight, qa.scale if per_channel else None)
+    return qact.conv1d_int8_plain(qa.q, kq, w_scale, None if per_channel else qa.scale, bias,
+                                  stride, dilation, dtype or qa.dtype)
+
+
+def split_quantize(x: torch.Tensor):
+    """x's two channel halves quantized apart and concatenated: a per-channel
+    scale, as the up path's skip concat makes it."""
+    c = x.shape[1] // 2
+    return qact.qact_concat(qact.quantize(x[:, :c].contiguous()),
+                            qact.quantize(x[:, c:].contiguous()))
+
+
+def check_int8_kernels(dev, gen):
+    """The int8 serving path's kernels against their plain versions on the
+    card: the convolution and quantize bit for bit, the int8 GroupNorm
+    modes within 1e-5 / 1e-4; returns their JSON entries (launches are
+    phase 10's)."""
+    n, t = BATCH, SAMPLES
+    cases = [
+        # (label, n, cin, cout, t, taps, dilation, per-channel scale, out dtype)
+        ("64->64 d1", n, 64, 64, t, 3, 1, False, torch.float32),
+        ("64->64 d2", n, 64, 64, t, 3, 2, False, torch.float32),
+        ("64->64 d2 bf16", n, 64, 64, t, 3, 2, False, torch.bfloat16),
+        ("128->64", n, 128, 64, t, 3, 1, False, torch.float32),
+        ("1x1 128->64, per-channel", n, 128, 64, t, 1, 1, True, torch.float32),
+        ("128->128 at 16000", n, 128, 128, t // 4, 3, 1, False, torch.bfloat16),
+        ("8->12 T 1000 d32", 3, 8, 12, 1000, 3, 32, False, torch.float32),
+    ]
+    for label, nn_, cin, cout, tt, taps, dil, per_channel, dtype in cases:
+        x = torch.randn(nn_, cin, tt, generator=gen, device=dev)
+        if per_channel:
+            x[:, cin // 2:] *= 20.0
+        qa = split_quantize(x) if per_channel else qact.quantize(x)
+        qa = qact.QAct(qa.q, qa.scale, dtype)
+        w = torch.randn(cout, cin, taps, generator=gen, device=dev) / (cin * taps) ** 0.5
+        b = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        got = qact.conv1d_int8(qa, w, b, dilation=dil)
+        again = qact.conv1d_int8(qa, w, b, dilation=dil)
+        want = conv_int8_plain(qa, w, b, 1, dil)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs().max().item()
+        print(f"int8 conv {label} [{nn_}, {cin}, {tt}] -> {cout}, {taps} taps, "
+              f"{str(dtype)[6:]} out: max |kernel - plain| {diff:.3g}, bit-equal "
+              f"{torch.equal(got, want)}, same bits twice {torch.equal(got, again)}")
+        assert torch.equal(got, want) and torch.equal(got, again), label
+        del x, qa, got, again, want
+
+    for label, x in (("f32", torch.randn(n, 64, t, generator=gen, device=dev)),
+                     ("bf16", torch.randn(n, 64, t, generator=gen, device=dev).to(
+                         torch.bfloat16)),
+                     ("zero", torch.zeros(n, 64, t, device=dev))):
+        got, want = qact.quantize(x), qact.quantize_plain(x)
+        torch.cuda.synchronize()
+        same = torch.equal(got.q, want.q) and torch.equal(got.scale, want.scale)
+        print(f"quantize {label} [{n}, 64, {t}]: codes and scale bit-equal {same}, "
+              f"scale {got.scale.item():.6g}")
+        assert same, label
+
+    err_stats = err_apply = 0.0
+    for label, c, per_channel in (("per-tensor", 64, False), ("per-channel", 128, True)):
+        x = torch.randn(n, c, t, generator=gen, device=dev) + 0.5
+        if per_channel:
+            x[:, c // 2:] *= 9.0
+        qa = split_quantize(x) if per_channel else qact.quantize(x)
+        w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+        b = 0.2 * torch.randn(c, generator=gen, device=dev)
+        coeffs = gn.group_norm_coeffs_int8(qa.q, qa.scale, 32, w, b, 1e-5)
+        plain = gn.group_norm_coeffs_plain(qact.dequantize(qa), 32, w, b, 1e-5)
+        e_coef = max(((k - p).abs() / p.abs().clamp(min=1.0)).max().item()
+                     for k, p in zip(coeffs, plain))
+        for dtype in (torch.float32, torch.bfloat16):
+            y = gn.group_norm_apply_int8(qa.q, qa.scale, *plain, True, dtype)
+            y_p = gn.group_norm_apply_plain(qact.dequantize(qa), *plain, True).to(dtype)
+            e_apply = out_err(y, y_p)
+            print(f"int8 groupnorm {label} [{n}, {c}, {t}] -> {str(dtype)[6:]}: (mean, a, b) "
+                  f"rel err {e_coef:.3g}, apply+gelu err {e_apply:.3g}")
+            assert e_coef <= 1e-4 and e_apply <= (1e-4 if dtype == torch.float32 else 2e-2)
+            if dtype == torch.float32:
+                err_stats, err_apply = max(err_stats, e_coef), max(err_apply, e_apply)
+        del x, qa, y, y_p
+
+    # Timing at the top level's shapes: [16, 64, 64000] 64 -> 64, 3 taps,
+    # dilation 2 (conv_out), float32 out (the JSON line) and bf16 out.
+    x = torch.randn(n, 64, t, generator=gen, device=dev)
+    qa = qact.quantize(x)
+    w = torch.randn(64, 64, 3, generator=gen, device=dev) / 96 ** 0.5
+    b = 0.1 * torch.randn(64, generator=gen, device=dev)
+    conv = torch.nn.Conv1d(64, 64, 3, padding=2, dilation=2).to(dev)
+    with torch.no_grad():
+        conv.weight.copy_(w)
+        conv.bias.copy_(b)
+    flops = 2.0 * n * t * 64 * 64 * 3
+    entries = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q8 = qact.QAct(qa.q, qa.scale, dtype)
+        ms = cuda_ms(lambda: qact.conv1d_int8(q8, conv.weight, conv.bias, dilation=2,
+                                              conv=conv), 20)
+        plain_ms = cuda_ms(lambda: conv_int8_plain(q8, w, b, 1, 2), 5)
+        xb = x.to(torch.bfloat16)
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.conv1d(xb, wb, bb, padding=2, dilation=2), 20)
+        out_bytes = n * 64 * t * (4 if dtype == torch.float32 else 2)
+        cb, cby = bound_ms(qa.q.numel() + w.numel() + out_bytes, flops, INT8_OP_PER_S)
+        print(f"int8 conv timing [{n}, 64, {t}] 64->64 d2, {str(dtype)[6:]} out: {ms:.4f} ms "
+              f"({100 * cb / ms:.1f}% of its bound {cb:.4f} by {cby}; plain {plain_ms:.4f}); "
+              f"a different function for scale: cuDNN bf16 conv1d of the same shape "
+              f"{lib_ms:.4f} ms")
+        if dtype == torch.float32:
+            entries.append(dict(
+                name="conv1d_int8", route="cuda",
+                source="vq_voice_swap_torch/csrc/conv1d_int8.cu",
+                replaces="vq_voice_swap_tpu/ops/qact.py:185", launches=0,
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=cb, bound_by=cby,
+                library_ms=None))
+        del xb
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        ms = cuda_ms(lambda: qact.quantize(xd), 20)
+        plain_ms = cuda_ms(lambda: qact.quantize_plain(xd), 20)
+        qb, qby = bound_ms(xd.numel() * xd.element_size() + xd.numel(), 4 * xd.numel())
+        print(f"quantize timing [{n}, 64, {t}] {str(dtype)[6:]}: {ms:.4f} ms, two launches "
+              f"({100 * qb / ms:.1f}% of its bound {qb:.4f} by {qby}; plain {plain_ms:.4f})")
+        if dtype == torch.float32:
+            entries.append(dict(
+                name="quantize", route="cuda",
+                source="vq_voice_swap_torch/csrc/qact.cu",
+                replaces="vq_voice_swap_tpu/ops/qact.py:67", launches=0, max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=qb, bound_by=qby, library_ms=None))
+        del xd
+    ww = 1.0 + 0.2 * torch.randn(64, generator=gen, device=dev)
+    bw = 0.2 * torch.randn(64, generator=gen, device=dev)
+    coeffs = gn.group_norm_coeffs_int8(qa.q, qa.scale, 32, ww, bw, 1e-5)
+    sms = cuda_ms(lambda: gn.group_norm_coeffs_int8(qa.q, qa.scale, 32, ww, bw, 1e-5), 20)
+    splain = cuda_ms(lambda: gn.group_norm_coeffs_plain(qact.dequantize(qa), 32, ww, bw,
+                                                        1e-5), 20)
+    ams = cuda_ms(lambda: gn.group_norm_apply_int8(qa.q, qa.scale, *coeffs, True,
+                                                   torch.float32), 20)
+    aplain = cuda_ms(lambda: gn.group_norm_apply_plain(qact.dequantize(qa), *coeffs, True), 20)
+    sb, sby = bound_ms(qa.q.numel() + 3 * 4 * n * 64, 5 * qa.q.numel())
+    ab, aby = bound_ms(qa.q.numel() * 5 + 3 * 4 * n * 64, 26 * qa.q.numel())
+    print(f"int8 groupnorm timing [{n}, 64, {t}]: statistics + fold {sms:.4f} ms "
+          f"({100 * sb / sms:.1f}% of its bound {sb:.4f} by {sby}; plain {splain:.4f}); "
+          f"apply+gelu to f32 {ams:.4f} ms ({100 * ab / ams:.1f}% of its bound {ab:.4f} by "
+          f"{aby}; plain {aplain:.4f})")
+    entries += [
+        dict(name="group_norm_stats_int8", route="cuda",
+             source="vq_voice_swap_torch/csrc/group_norm_stats.cu",
+             replaces="vq_voice_swap_tpu/ops/qact.py:138", launches=0, max_abs_err=err_stats,
+             ms=sms, plain_ms=splain, bound_ms=sb, bound_by=sby, library_ms=None),
+        dict(name="group_norm_apply_int8", route="triton",
+             source="vq_voice_swap_torch/ops/group_norm.py",
+             replaces="vq_voice_swap_tpu/ops/qact.py:144", launches=0, max_abs_err=err_apply,
+             ms=ams, plain_ms=aplain, bound_ms=ab, bound_by=aby, library_ms=None),
+    ]
+    del x, qa, conv
+    torch.cuda.empty_cache()
+    return entries
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -1056,8 +1249,11 @@ def write_wav(path: str, samples: np.ndarray) -> None:
 COUNTED = (vqa.vq_assign, gn.group_norm_coeffs, gn.group_norm_stats, gn.group_norm_apply,
            gn.group_norm_backward, gn._bwd_cluster, gn._bwd_two_kernel,
            gn.group_norm_bwd_reduce, gn.group_norm_bwd_dx,
-           frb.fused_resblock_stats, frb.fused_resblock_apply)
-KERNEL_WRAPPERS = {"group_norm_stats": ("group_norm_coeffs", "group_norm_stats")}
+           frb.fused_resblock_stats, frb.fused_resblock_apply,
+           qact.quantize, qact.conv1d_int8, gn.group_norm_coeffs_int8, gn.group_norm_apply_int8)
+KERNEL_WRAPPERS = {"group_norm_stats": ("group_norm_coeffs", "group_norm_stats"),
+                   "group_norm_stats_int8": ("group_norm_coeffs_int8",)}
+INT8_KERNELS = ("conv1d_int8", "quantize", "group_norm_stats_int8", "group_norm_apply_int8")
 
 
 def reset_counts():
@@ -1342,6 +1538,10 @@ def _kernel_class(name: str) -> str:
         return "groupnorm apply (Triton)"
     if "vq_assign_kernel" in name:
         return "vq assign (CUDA)"
+    if "conv1d_int8_kernel" in name:
+        return "int8 conv (CUDA)"
+    if "amax_kernel" in name or "quantize_kernel" in name:
+        return "quantize (CUDA)"
     lowered = name.lower()
     if any(k in lowered for k in ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad")):
         return "convolution / matmul (cuDNN, cuBLAS)"
@@ -2567,9 +2767,10 @@ def data_eval_paths(dev, workdir: str, smi: str, flagship: str, uncond_ckpt: str
 # each running this script's rank_main: a run without the launcher, then
 # one process under torchrun that runs DP, FSDP and DP at K=4 one after the
 # other (the group stays up between them), then two ranks sharing the card
-# over gloo, DP and then FSDP (saved as dcp). Eight steps give the K=4 run a
-# steady second window.
-PARALLEL_STEPS = TRAIN_STEPS
+# over gloo, DP and then FSDP (saved as dcp). Four steps (one K=4 window,
+# as phase 5's other K=4 runs), cut from eight to keep the script inside
+# its time limit.
+PARALLEL_STEPS = 4
 # The world-size-1 runs whose host time a step is profiled (one more step,
 # after the run's own) and set beside the plain run's.
 PROFILED = ("plain", "dp", "fsdp")
@@ -2918,12 +3119,14 @@ TP_SIZE = 2
 TP_RANKS = 4
 TP_DEVICE = "cuda:0"
 TP_SPEC = "--tp-run"
-TP_SWAP_STEPS = 10
-TP_SAMPLE_STEPS = 5
-TP_TRAIN_STEPS = 3
+# Sampler depth cut from 10 and 5 steps to keep the script inside its time
+# limit.
+TP_SWAP_STEPS = 4
+TP_SAMPLE_STEPS = 3
+TP_TRAIN_STEPS = 2  # cut from 3 (the script's time limit)
 TP_TRAIN_BATCH = 4  # the global batch: TP_TRAIN_BATCH / data rows a rank
 # Stated tolerances, of the largest magnitude of the world-1 output (or 1):
-# the swap in f32 with TF32 off (10 DPM++ steps; a cut convolution computes
+# the swap in f32 with TF32 off (4 DPM++ steps; a cut convolution computes
 # each output channel from the whole input, and three runs on an H100 gave
 # 0), bf16 sampling (the batch's rows split over the data rows as well;
 # three runs gave at most 6.26e-3); the training runs' losses, relative, as
@@ -3100,10 +3303,10 @@ def _scaled_error(got: np.ndarray, want: np.ndarray) -> float:
 
 
 def tensor_parallel_paths(workdir: str, smi: str, ckpt: str, uncond_ckpt: str) -> dict:
-    """Phase 8: the swap (phase 3's model, f32 with TF32 off, 10 DPM++
+    """Phase 8: the swap (phase 3's model, f32 with TF32 off, 4 DPM++
     steps), bf16 sampling (phase 3's unconditional unet64, --fuse-levels
-    2, 2 samples, 5 steps) and the bf16 flagship's training (global batch
-    4, 3 steps, deterministic, without and with --fsdp, and one more
+    2, 2 samples, 3 steps) and the bf16 flagship's training (global batch
+    4, 2 steps, deterministic, without and with --fsdp, and one more
     profiled step without it) on TP_RANKS gloo ranks at TP_SIZE model
     columns, against their world-1 runs in this process. Asserts the
     swap's codes equal and its samples, the sampled files and the losses
@@ -3248,7 +3451,7 @@ SEQ_VQVAE_PARAMS = 61_515_393
 SEQ_SWAP_SAMPLES = 4688 * 1024  # 300.032 s: a multiple of 256 x 4 ranks, kept whole by both
 SEQ_SWAP_STEPS = 10
 SEQ_SWAP_LABEL = 1
-SEQ_TRAIN_STEPS = 3
+SEQ_TRAIN_STEPS = 2  # cut from 3 (the script's time limit)
 SEQ_TRAIN_BATCH = 2
 SEQ_TRAIN_SAMPLES = 16 * SAMPLE_RATE
 # Stated limits (the predictions are ten times tighter): the conversion's
@@ -3432,7 +3635,7 @@ def _decode_codes(vqvae: str, codes: np.ndarray) -> np.ndarray:
 
 def sequence_parallel_paths(workdir: str, smi: str) -> dict:
     """Phase 9: ``long_audio_convert`` of a 5-minute speech-like clip with
-    the flagship VQ-VAE (f32, TF32 off, 10 DPM++ steps, label 1) and 3
+    the flagship VQ-VAE (f32, TF32 off, 10 DPM++ steps, label 1) and 2
     steps of ``make_seq_parallel_train_step`` on the unet64 diffusion
     model at batch 2 of 16 s, on SEQ_RANKS gloo ranks sharing the card,
     against their world-1 runs in this process (which convert the clip on
@@ -3548,6 +3751,182 @@ def sequence_parallel_paths(workdir: str, smi: str) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 10
+
+# The int8 activation path at MIN_T 16000: a 4 s clip's top three UNet
+# levels (64000, 32000, 16000 samples) are int8. Per unet64 predictor call
+# (from the code, and a CPU count at base 4): the stem's output, 3 x 3
+# same-resolution and down blocks at those levels and the deeper up path's
+# 4 + 3 x 4 + 3 x 4 + 3 x 3 quantize 61 times (2 launches each); 50 int8
+# convolutions (2 a block, 3 with a skip projection); 21 GroupNorms read
+# int8 (a block's norm_in whose input is int8, and out_norm), the other 110
+# are float.
+INT8_MIN_T = 16000
+INT8_PER_PREDICTOR = dict(quantize=2 * 61, conv1d_int8=50, group_norm_coeffs_int8=21,
+                          group_norm_apply_int8=21, group_norm_coeffs=110, group_norm_apply=110)
+INT8_SAMPLE_STEPS = 5
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The UNet's kernels replaced by their plain versions, on whatever
+    device: the int8 path's (quantize, the convolution, the int8 GroupNorm)
+    and the float GroupNorm's."""
+    def group_norm_plain(x, weight, bias, num_groups, eps, use_gelu, film=None):
+        coeffs = gn.group_norm_coeffs_plain(x, num_groups, weight, bias, eps, film)
+        return gn.group_norm_apply_plain(x, *coeffs, use_gelu)
+
+    def conv_plain(qa, weight, bias, *, stride=1, dilation=1, dtype=None, conv=None):
+        return conv_int8_plain(qa, weight, bias, stride, dilation, dtype)
+
+    saved = {k: getattr(layers, k) for k in ("quantize", "conv1d_int8", "qact_group_norm",
+                                             "group_norm")}
+    layers.quantize = qact.quantize_plain
+    layers.conv1d_int8 = conv_plain
+    layers.qact_group_norm = qact.qact_group_norm_plain
+    layers.group_norm = group_norm_plain
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(layers, k, v)
+
+
+def int8_against_plain(name: str, call, int8_model, float_model, bf16: bool) -> None:
+    """One predictor call through the kernels against the same call through
+    the plain versions on the card. A code that flips at a .5 boundary (the
+    kernels' float GroupNorm rounds otherwise than the plain one) moves the
+    next statistics and flips more codes downstream, so at full depth the
+    two int8 outputs differ as two quantizations of one float forward do:
+    two independent ones would differ by sqrt(2) of the int8 path's own
+    error (the plain int8 output against the float model's). They are held
+    to 1.5 times that error (L2) and to a correlation above 0.995 (f32) or
+    0.98 (bf16)."""
+    with torch.no_grad():
+        got = call(int8_model).double().flatten()
+        with plain_versions():
+            want = call(int8_model).double().flatten()
+        floating = call(float_model).double().flatten()
+    assert torch.isfinite(got).all()
+    gap, quant = (got - want).norm().item(), (want - floating).norm().item()
+    corr = torch.corrcoef(torch.stack([got, want]))[0, 1].item()
+    print(f"phase 10 {name}: one predictor call, kernels vs plain versions on the card: "
+          f"L2 gap {gap:.4g} against the int8 path's own L2 error {quant:.4g} (plain int8 vs "
+          f"float), max |gap| / max |out| {(got - want).abs().max().item() / want.abs().max().item():.3g}, "
+          f"correlation {corr:.6f}")
+    assert gap < 1.5 * quant and corr > (0.98 if bf16 else 0.995), name
+
+
+def no_host_sync(name: str, call) -> None:
+    """One call with the CUDA sync debug mode at "error": any host sync
+    inside it raises."""
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"phase 10 {name}: one predictor call under sync debug mode \"error\": no host sync")
+
+
+def timed_cli(cli, argv) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def int8_serving_paths(dev, workdir: str, ckpt: str, uncond_ckpt: str, smi: str) -> dict:
+    """Phase 10: the sampling CLIs with --act-int8 16000 at full width,
+    each beside the same CLI without it in this process. Returns each int8
+    run's launch counts."""
+    counts = {}
+    gen = torch.Generator(device=dev).manual_seed(10)
+    runs = [
+        ("sampling bf16", sample_diffusion, [
+            "--checkpoint-path", uncond_ckpt, "--bf16", "--sampler", "dpmpp",
+            "--schedule", "quadratic", "--sample-steps", str(INT8_SAMPLE_STEPS),
+            "--num-samples", str(BATCH), "--batch-size", str(BATCH), "--device", "cuda"],
+         INT8_SAMPLE_STEPS, BATCH * SAMPLES / SAMPLE_RATE),
+        ("swap f32", sample_vqvae, [
+            "--label", "7", "--input-file", os.path.join(workdir, "in.wav"),
+            "--sample-steps", "10", "--sampler", "dpmpp", "--device", "cuda"],
+         10, SAMPLES / SAMPLE_RATE),
+    ]
+    for name, cli, argv, calls, audio_s in runs:
+        int8 = ["--act-int8", str(INT8_MIN_T)]
+        outs = iter(range(5))
+
+        def path():
+            """A new output each run (sample_diffusion skips complete batches)."""
+            out = os.path.join(workdir, f"int8_{name.split()[0]}_{next(outs)}")
+            return ["--sample-path", out] if cli is sample_diffusion else [ckpt, out + ".wav"]
+
+        reset_counts()
+        timed_cli(cli, argv + int8 + path())  # also the first int8 launches' compiles
+        counts[name] = read_counts()
+        want = {k: v * calls for k, v in INT8_PER_PREDICTOR.items()}
+        want.update(vq_assign=0 if cli is sample_diffusion else 1, group_norm_stats=0,
+                    group_norm_backward=0, fused_resblock_stats=0, fused_resblock_apply=0)
+        got = {k: counts[name][k] for k in want}
+        print(f"phase 10 {name} --act-int8 {INT8_MIN_T} on {smi}: launches {got}")
+        assert got == want, (name, got, want)
+        seconds = {"int8": [], "float": []}
+        for kind in ("float", "int8") * 2:
+            seconds[kind].append(timed_cli(cli, argv + (int8 if kind == "int8" else []) + path()))
+        rtf = {k: audio_s / float(np.median(v)) for k, v in seconds.items()}
+        print(f"phase 10 {name}: CLI wall s (model load included), in turns: int8 "
+              f"{seconds['int8']}, float {seconds['float']}; RTF of the medians: int8 "
+              f"{rtf['int8']:.3f}x, float {rtf['float']:.3f}x (int8 / float "
+              f"{rtf['int8'] / rtf['float']:.3f})")
+
+        dtype = "bfloat16" if "bf16" in name else None
+        cls, saved = (DiffusionModel, uncond_ckpt) if cli is sample_diffusion else (VQVAE, ckpt)
+        m8 = cls.load(saved, dtype=dtype, device=dev, act_int8_min_t=INT8_MIN_T)
+        mf = cls.load(saved, dtype=dtype, device=dev)
+        rows = BATCH  # as phase 4's profiles
+        x = torch.randn(rows, SAMPLES, 1, generator=gen, device=dev)
+        ts = torch.full((rows,), 0.5, device=dev)
+        if cli is sample_diffusion:
+            def call(m):
+                return m.predict_eps(x, ts)
+        else:
+            cond = torch.randn(rows, SAMPLES // 320, m8.cond_channels, generator=gen, device=dev)
+            labels = torch.full((rows,), 7, device=dev)
+
+            def call(m):
+                return m.predict_eps(x, ts, cond, labels)
+        torch.backends.cudnn.allow_tf32 = False
+        int8_against_plain(name, call, m8, mf, dtype is not None)
+        torch.backends.cudnn.allow_tf32 = True
+        no_host_sync(name, lambda: call(m8))
+        launches, _ = profile_call(lambda: call(m8), f"phase 10 {name} int8 predictor call")
+        print(f"  phase 10 {name}: {launches} kernel launches in one int8 predictor call")
+        profile_call(lambda: call(mf), f"phase 10 {name} float predictor call")
+        del m8, mf
+        torch.cuda.empty_cache()
+
+    # The third sampling CLI: classifier-free guidance, one predictor call a
+    # step on the stacked batch.
+    reset_counts()
+    sample_vqvae_uncond.main([
+        "--label", "7", "--input-file", os.path.join(workdir, "in.wav"), "--sample-steps",
+        "10", "--sampler", "dpmpp", "--guide-label-scale", "1", "--device", "cuda",
+        "--act-int8", str(INT8_MIN_T), ckpt, os.path.join(workdir, "int8_uncond.wav")])
+    torch.cuda.synchronize()
+    counts["uncond f32"] = read_counts()
+    want = {k: v * 10 for k, v in INT8_PER_PREDICTOR.items()}
+    want.update(vq_assign=1, group_norm_backward=0)
+    got = {k: counts["uncond f32"][k] for k in want}
+    print(f"phase 10 sample_vqvae_uncond --act-int8 {INT8_MIN_T}: launches {got}")
+    assert got == want, (got, want)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3584,6 +3963,7 @@ def main() -> int:
     kernels.append(check_group_norm_split_backward(dev, gen))
     check_group_norm_training_grads(dev, gen)
     kernels += check_fused_resblock(dev, gen)
+    kernels += check_int8_kernels(dev, gen)
     check_tickets("the kernel checks")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for serving
     torch.cuda.empty_cache()
@@ -3601,8 +3981,8 @@ def main() -> int:
             if k["name"] == "group_norm_backward":  # the two differentiating paths
                 k["launches"] = sum(c["_bwd_cluster"] for c in guided.values())
                 continue
-            if k["name"] == "group_norm_bwd_split":  # phase 9's training sets it
-                continue
+            if k["name"] == "group_norm_bwd_split" or k["name"] in INT8_KERNELS:
+                continue  # phases 9 and 10 set them
             path = sampling_launches if k["name"].startswith("fused") else swap_launches
             k["launches"] = sum(path[w] for w in KERNEL_WRAPPERS.get(k["name"], (k["name"],)))
         print(f"phase 3: {time.perf_counter() - t_start:.1f} s")
@@ -3650,6 +4030,12 @@ def main() -> int:
             if k["name"] == "group_norm_bwd_split":  # phase 9's training, rank 0
                 c = sequence["train rank 0"]
                 k["launches"] = c["group_norm_bwd_reduce"] + c["group_norm_bwd_dx"]
+        int8 = int8_serving_paths(dev, workdir, ckpt, uncond_ckpt, smi)
+        print(f"phase 10: {time.perf_counter() - t_start:.1f} s")
+        for k in kernels:
+            if k["name"] in INT8_KERNELS:
+                k["launches"] = sum(c[w] for c in int8.values()
+                                    for w in KERNEL_WRAPPERS.get(k["name"], (k["name"],)))
     check_tickets("the data and eval paths")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 

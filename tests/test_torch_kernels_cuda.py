@@ -935,3 +935,118 @@ def test_group_norm_split_backward_matches_unsharded(cuda_gen, dtype, tol, shape
         assert ((got_s - want_s).abs().max() / want_s.abs().max()).item() <= 1e-4
     assert gn.group_norm_bwd_reduce.launches == launches[0] + 2
     assert gn.group_norm_bwd_dx.launches == launches[1] + 2
+
+
+# ------------------------------------------------- the int8 serving path
+
+
+def _qact():
+    from vq_voice_swap_torch.ops import qact
+
+    return qact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kind", [((2, 64, 3000), "randn"), ((3, 5, 777), "randn"),
+                                        ((1, 8, 1001), "zero"), ((1, 1, 256), "ties")])
+def test_quantize_kernel_is_bit_equal_to_plain(cuda_gen, dtype, shape, kind):
+    qact = _qact()
+    if kind == "zero":
+        x = torch.zeros(shape, device="cuda")
+    elif kind == "ties":  # amax 127: scale 1, every value on a .5 boundary
+        x = torch.arange(shape[-1], device="cuda", dtype=torch.float32).view(shape) - 127.5
+        x[..., 0] = 127.0
+    else:
+        x = 3.0 * torch.randn(shape, generator=cuda_gen, device="cuda")
+    x = x.to(dtype)
+    launches = qact.quantize.launches
+    got = qact.quantize(x)
+    want = qact.quantize_plain(x)
+    assert qact.quantize.launches == launches + 2
+    assert got.scale.shape == () and got.scale.is_cuda and got.dtype == dtype
+    assert torch.equal(got.scale, want.scale) and torch.equal(got.q, want.q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,cin,cout,t,taps,dilation,per_channel,bias", [
+    (2, 64, 64, 3000, 3, 1, False, True),
+    (2, 64, 64, 3000, 3, 2, False, True),
+    (1, 128, 64, 1000, 3, 2, False, False),
+    (2, 128, 64, 999, 1, 1, True, True),
+    (1, 8, 12, 1000, 3, 32, False, True),
+    (3, 40, 70, 333, 3, 5, True, False),
+    (1, 256, 128, 515, 3, 1, True, True),
+])
+def test_conv1d_int8_kernel_is_bit_equal_to_plain(cuda_gen, out_dtype, n, cin, cout, t, taps,
+                                                  dilation, per_channel, bias):
+    qact = _qact()
+    x = torch.randn(n, cin, t, generator=cuda_gen, device="cuda")
+    if per_channel:
+        half = cin // 2
+        qa = qact.qact_concat(qact.quantize(x[:, :half].contiguous()),
+                              qact.quantize(40.0 * x[:, half:].contiguous()))
+    else:
+        qa = qact.quantize(x)
+    qa = qact.QAct(qa.q, qa.scale, out_dtype)
+    w = 0.2 * torch.randn(cout, cin, taps, generator=cuda_gen, device="cuda")
+    b = 0.1 * torch.randn(cout, generator=cuda_gen, device="cuda") if bias else None
+    launches = qact.conv1d_int8.launches
+    got = qact.conv1d_int8(qa, w, b, dilation=dilation)
+    kq, w_scale = qact.quantize_weight(w, qa.scale if per_channel else None)
+    want = qact.conv1d_int8_plain(qa.q, kq, w_scale, None if per_channel else qa.scale, b, 1,
+                                  dilation, out_dtype)
+    torch.cuda.synchronize()
+    assert qact.conv1d_int8.launches == launches + 1
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conv1d_int8_refuses_what_the_kernel_does_not_take(cuda_gen):
+    qact = _qact()
+    qa = qact.quantize(torch.randn(1, 8, 100, generator=cuda_gen, device="cuda"))
+    w = torch.randn(4, 8, 3, device="cuda")
+    with pytest.raises(ValueError, match="stride"):
+        qact.conv1d_int8(qa, w, None, stride=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        qact.conv1d_int8(qa, w, None, dilation=5000)
+    with pytest.raises(ValueError, match="taps"):
+        qact.conv1d_int8(qa, torch.randn(4, 8, 5, device="cuda"), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,per_channel", [
+    ((2, 64, 3000), 32, False), ((2, 192, 1000), 32, True), ((3, 20, 333), 4, True),
+    ((1, 4, 70001), 4, False)])
+@pytest.mark.parametrize("use_gelu", [False, True])
+def test_int8_group_norm_kernels_match_plain(cuda_gen, dtype, shape, groups, per_channel,
+                                             use_gelu):
+    qact = _qact()
+    n, c, t = shape
+    x = torch.randn(shape, generator=cuda_gen, device="cuda") + 0.5
+    if per_channel:
+        qa = qact.qact_concat(qact.quantize(x[:, :c // 2].contiguous()),
+                              qact.quantize(9.0 * x[:, c // 2:].contiguous()))
+    else:
+        qa = qact.quantize(x)
+    qa = qact.QAct(qa.q, qa.scale, dtype)
+    w = torch.rand(c, generator=cuda_gen, device="cuda") + 0.5
+    b = torch.randn(c, generator=cuda_gen, device="cuda")
+    launches = (gn.group_norm_coeffs_int8.launches, gn.group_norm_apply_int8.launches)
+    coeffs = gn.group_norm_coeffs_int8(qa.q, qa.scale, groups, w, b, 1e-5)
+    want = gn.group_norm_coeffs_plain(qact.dequantize(qa), groups, w, b, 1e-5)
+    for k, p in zip(coeffs, want):
+        torch.testing.assert_close(k, p, atol=1e-5, rtol=1e-4)
+    got = gn.group_norm_apply_int8(qa.q, qa.scale, *want, use_gelu, dtype).float()
+    ref = gn.group_norm_apply_plain(qact.dequantize(qa), *want, use_gelu).to(dtype).float()
+    scale = 1.0 if dtype == torch.float32 else ref.abs().clamp(min=1.0)
+    assert ((got - ref).abs() / scale).max().item() <= (1e-4 if dtype == torch.float32
+                                                         else 2e-2)
+    full = qact.qact_group_norm(qa, w, b, groups, 1e-5, use_gelu).float()
+    plain = qact.qact_group_norm_plain(qa, w, b, groups, 1e-5, use_gelu).float()
+    assert ((full - plain).abs() / scale).max().item() <= (1e-4 if dtype == torch.float32
+                                                           else 2e-2)
+    assert gn.group_norm_coeffs_int8.launches == launches[0] + 2
+    assert gn.group_norm_apply_int8.launches == launches[1] + 2

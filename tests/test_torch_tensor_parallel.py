@@ -270,7 +270,9 @@ def world4(tmp_path_factory):
                                                  "--sample-steps", "2", "--fuse-levels", "2",
                                                  "--num-samples", "3", "--batch-size", "2",
                                                  "--tensor-parallel", "2", "--sample-path",
-                                                 str(root / "d2_rerun")]]]],
+                                                 str(root / "d2_rerun")]],
+                           ["sample_diffusion", _int8_argv(paths, str(root / "d2_int8"))
+                            + ["--tensor-parallel", "2"]]]],
     ]
     os.makedirs(root / "d2_rerun")
     # A complete first batch (its file a marker) for the rerun to skip.
@@ -523,6 +525,23 @@ def test_sample_diffusion_at_d2_t2_writes_the_world1_files(world4, tmp_path, mon
                                                                 "rb") as g:
             assert f.read() == g.read()
     _same_samples(rerun["sample_000002.wav"], str(want / "diffusion" / "sample_000002.wav"))
+
+
+def _int8_argv(paths, out: str):
+    """int8 activations at both levels of the shallow UNet (64000 and 32000
+    samples), a batch of 2 that the two data rows would divide."""
+    return ["--checkpoint-path", paths["diffusion"], "--sample-steps", "2", "--num-samples",
+            "2", "--batch-size", "2", "--act-int8", "32000", "--sample-path", out]
+
+
+def test_sample_diffusion_act_int8_at_d2_t2_writes_the_world1_files(world4, tmp_path,
+                                                                     monkeypatch):
+    """With --act-int8 every data row runs the whole batch (the amax spans
+    it), so the files are the one-process run's."""
+    want = tmp_path / "want"
+    _main_process_sampling(monkeypatch, [["sample_diffusion", _int8_argv(world4["paths"],
+                                                                         str(want))]])
+    _same_files(world4["root"] / "d2_int8", want)
 
 
 # ---------------------------------------------------- the world of two ranks

@@ -391,11 +391,12 @@ def tp_refusal(rank: int, world: int, model_size: int) -> str:
     return "no error"
 
 
-def tiny_diffusion(fuse_levels: int = 0) -> DiffusionModel:
+def tiny_diffusion(fuse_levels: int = 0, act_int8_min_t: int = 0) -> DiffusionModel:
     """An unconditional diffusion model of the shallow UNet at base 4."""
-    model = DiffusionModel(pred_name="unet", base_channels=BASE)
+    model = DiffusionModel(pred_name="unet", base_channels=BASE, act_int8_min_t=act_int8_min_t)
     model.predictor = UNetPredictor(base_channels=BASE, middle_dilations=(4,),
-                                    fuse_levels=fuse_levels, **SHALLOW)
+                                    fuse_levels=fuse_levels, act_int8_min_t=act_int8_min_t,
+                                    **SHALLOW)
     return model
 
 
@@ -403,7 +404,7 @@ def tiny_from_manifest(cls, name, kwargs):
     """``ModelBase.from_manifest`` for the shallow test models' checkpoints."""
     if name == "VQVAE":
         return tiny_vqvae()
-    return tiny_diffusion(kwargs.get("fuse_levels", 0))
+    return tiny_diffusion(kwargs.get("fuse_levels", 0), kwargs.get("act_int8_min_t", 0))
 
 
 class RecordingWriter(ChunkWriter):

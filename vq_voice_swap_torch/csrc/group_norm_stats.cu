@@ -40,6 +40,11 @@
 //   own dtype through a row stride, so the chunks of a [N, 2C] projection
 //   need no copy; outputs go through a row stride, so several inputs can
 //   fill the column slices of one [N, Cin] result.
+// - int8 input (the int8 serving path, ops/qact.py::qact_group_norm): x
+//   holds activation codes, and each value is code * scale[c] (one float32
+//   scale for the tensor, or one a channel after a channel concat),
+//   dequantized in registers as it is loaded, 16 codes a 16-byte load; the
+//   statistics, the merge and the fold are the float path's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,8 +107,24 @@ __device__ __forceinline__ void load_values<__nv_bfloat16, 8>(const __nv_bfloat1
 }
 
 template <>
+__device__ __forceinline__ void load_values<int8_t, 16>(const int8_t* p, long long i, float* out) {
+  const int4 q = __ldg(reinterpret_cast<const int4*>(p) + i);
+  const int w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) out[4 * j + b] = static_cast<float>(static_cast<int8_t>(w[j] >> (8 * b)));
+  }
+}
+
+template <>
 __device__ __forceinline__ void load_values<float, 1>(const float* p, long long i, float* out) {
   out[0] = __ldg(p + i);
+}
+
+template <>
+__device__ __forceinline__ void load_values<int8_t, 1>(const int8_t* p, long long i, float* out) {
+  out[0] = static_cast<float>(__ldg(p + i));
 }
 
 template <>
@@ -138,7 +159,26 @@ struct Args {
   long long out_ld;
   float* out_group;    // coefficients only, or null: [2, N * G] group (mean, var)
   long long spans;     // N * G
+  const float* scale;  // int8 input: [1] or [C] float32 dequantization scales
+  int scale_stride;    //   0 (one scale) or 1 (one a channel)
+  long long t;         //   T, to find an element's channel
 };
+
+// Dequantize V codes of span `span_id` that start at span element i0, in
+// place: each times its channel's scale.
+__device__ __forceinline__ void dequantize(float* vals, int V, const Args& args, int span_id,
+                                           long long i0) {
+  const int g = span_id % args.groups;
+  long long c = i0 / args.t;
+  long long next = (c + 1) * args.t;
+  for (int e = 0; e < V; ++e) {
+    while (i0 + e >= next) {
+      ++c;
+      next += args.t;
+    }
+    vals[e] = __fmul_rn(vals[e], args.scale[(g * args.cpg + c) * args.scale_stride]);
+  }
+}
 
 template <typename T, int V>
 __global__ void __launch_bounds__(THREADS, 4)
@@ -166,6 +206,7 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
       const long long v = v0 + j * THREADS + tid;
       if (v < nvec) {
         load_values<T, V>(p, v, vals + j * V);
+        if constexpr (sizeof(T) == 1) dequantize(vals + j * V, V, args, span_id, start + v * V);
         ++valid;
       } else {
 #pragma unroll
@@ -283,8 +324,10 @@ cudaError_t launch(const void* x, int blocks, const Args& args, cudaStream_t str
 extern "C" int group_norm_stats_tile() { return TILE; }
 extern "C" int group_norm_stats_max_slices() { return MAX_SLICES; }
 
-// x [N, C, T] contiguous, float32 (dtype 0) or bfloat16 (dtype 1); `vec`
-// selects 16-byte loads (x 16-byte aligned, span and chunk multiples of 8).
+// x [N, C, T] contiguous, float32 (dtype 0), bfloat16 (dtype 1) or int8
+// codes (dtype 2, each value code * scale[c * scale_stride], scale float32
+// and scale_stride 0 or 1); `vec` selects 16-byte loads (x 16-byte aligned,
+// span and chunk multiples of 8, or of 16 for int8).
 // Spans = N * groups, each split into `slices` slices of `chunk` elements;
 // `part` holds spans * slices * 4 floats, 8-byte aligned, when slices > 1, `tickets` spans
 // zeroed ints. With `weight` (and `bias`, [C] float32): writes the folded
@@ -299,23 +342,27 @@ extern "C" int group_norm_stats(int dtype, const void* x, int n, int c, int t, i
                                 float eps, const void* film_a, const void* film_b,
                                 int film_dtype, long long film_ld, float* out_mean,
                                 float* out_a, float* out_b, long long out_ld,
-                                float* out_group, void* stream) {
-  if (slices < 1 || slices > MAX_SLICES || groups < 1 || c % groups) {
+                                float* out_group, const float* scale, int scale_stride,
+                                void* stream) {
+  if (slices < 1 || slices > MAX_SLICES || groups < 1 || c % groups ||
+      (dtype == 2 && scale == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int cpg = c / groups;
   Args args{(long long)cpg * t, slices, chunk, groups, cpg, part, tickets, weight, bias,
             eps, film_a, film_b, film_dtype, film_ld, out_mean, out_a, out_b, out_ld,
-            out_group, (long long)n * groups};
+            out_group, (long long)n * groups, scale, scale_stride, t};
   const int blocks = n * groups * slices;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
     err = vec ? launch<float, 4>(x, blocks, args, s) : launch<float, 1>(x, blocks, args, s);
-  } else {
+  } else if (dtype == 1) {
     err = vec ? launch<__nv_bfloat16, 8>(x, blocks, args, s)
               : launch<__nv_bfloat16, 1>(x, blocks, args, s);
+  } else {
+    err = vec ? launch<int8_t, 16>(x, blocks, args, s) : launch<int8_t, 1>(x, blocks, args, s);
   }
   return static_cast<int>(err);
 }

@@ -64,9 +64,13 @@ class DiffusionModel(ModelBase):
     ``dropout`` is the predictor's dropout rate in a training forward
     (``train=True``). ``remat`` rematerialises the UNet ResBlocks in a
     training backward ("full" or "convs", ``models.layers.remat_policy``).
-    ``act_int8_min_t`` (int8 activation storage) is not ported.
-    ``fuse_levels`` is a serving option of the UNet predictor (see
-    ``UNetPredictor``), set at load time and never saved.
+    ``act_int8_min_t`` > 0 serves the UNet predictor with int8-stored
+    activations at the levels whose time axis is at least that long
+    (``ops/qact.py``); saved with the kwargs, as the JAX package saves it,
+    and overridden at load time (``ModelBase.load``). A training forward
+    of such a model raises. ``fuse_levels`` is a serving option of the
+    UNet predictor (see ``UNetPredictor``), set at load time and never
+    saved.
     """
 
     def __init__(
@@ -83,10 +87,6 @@ class DiffusionModel(ModelBase):
         fuse_levels: int = 0,
     ):
         super().__init__()
-        if act_int8_min_t:
-            raise NotImplementedError(
-                "int8 activation storage is not ported yet"
-            )
         self.pred_name = pred_name
         self.base_channels = base_channels
         self.schedule_name = schedule_name
@@ -95,6 +95,7 @@ class DiffusionModel(ModelBase):
         self.dropout = dropout
         self.dtype_name = dtype
         self.remat = remat
+        self.act_int8_min_t = act_int8_min_t
         self.compute_dtype = getattr(torch, dtype) if dtype else None
         self.predictor = make_predictor(
             pred_name,
@@ -105,6 +106,7 @@ class DiffusionModel(ModelBase):
             dtype=self.compute_dtype,
             fuse_levels=fuse_levels,
             remat=remat,
+            act_int8_min_t=act_int8_min_t,
         )
         self.diffusion = Diffusion(make_schedule(schedule_name))
 
@@ -118,7 +120,7 @@ class DiffusionModel(ModelBase):
             dropout=self.dropout,
             dtype=self.dtype_name,
             remat=self.remat,
-            act_int8_min_t=0,
+            act_int8_min_t=self.act_int8_min_t,
         )
 
     @property

@@ -1,6 +1,7 @@
 """Self-describing models: a registry of model classes, save/load through the
 JAX package's ``.npz`` format (``ModelBase.load`` builds whatever class the
-manifest names), and the serving overrides ``dtype`` and ``fuse_levels``.
+manifest names), and the serving overrides ``dtype``, ``fuse_levels`` and
+``act_int8_min_t``.
 ``load`` also takes a released reference ``.pt`` checkpoint, converted on
 the fly (``convert/torch_import.py``), as the JAX package's does.
 
@@ -86,20 +87,25 @@ class ModelBase(nn.Module):
     @classmethod
     def load(
         cls, path: str, dtype: Optional[str] = None, device=None,
-        fuse_levels: int = 0, frozen: bool = False,
+        fuse_levels: int = 0, frozen: bool = False, act_int8_min_t: Optional[int] = None,
     ) -> "ModelBase":
         """Rebuild the model a checkpoint describes, on ``device`` (CUDA
         unless named). The class comes from the manifest and must be ``cls``
         or a subclass. ``dtype`` overrides the saved compute dtype (params
         stay float32), e.g. "bfloat16" for serving; ``fuse_levels`` > 0
         runs the UNet predictor's first levels through the fused ResBlock
-        kernels. Neither is written back by ``save``. ``frozen`` loads the
-        parameters with ``requires_grad`` off."""
+        kernels. Neither is written back by ``save``. ``act_int8_min_t``
+        overrides the saved int8 activation storage (levels whose time axis
+        is at least that long serve int8; 0 forces it off; None keeps the
+        checkpoint's), which ``save`` writes, as the JAX package does.
+        ``frozen`` loads the parameters with ``requires_grad`` off."""
         class_name, kwargs, state = _load_any_checkpoint(path)
         if dtype is not None:
             kwargs = {**kwargs, "dtype": dtype}
         if fuse_levels:
             kwargs = {**kwargs, "fuse_levels": fuse_levels}
+        if act_int8_min_t is not None:
+            kwargs = {**kwargs, "act_int8_min_t": act_int8_min_t}
         device = resolve_device(device)
         model = cls.from_manifest(class_name, kwargs)
         model.load_state_dict(state)

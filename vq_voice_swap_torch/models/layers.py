@@ -1,8 +1,8 @@
 """Shared building blocks of the 1-D audio models, on [N, C, T] activations.
 
-Counterpart of ``vq_voice_swap_tpu/models/layers.py`` without its int8
-(``QAct``) branches. Submodules carry the flax names (``conv``, ``norm``,
-``proj``, ``cond_proj``, ...) so checkpoints map by rule
+Counterpart of ``vq_voice_swap_tpu/models/layers.py``. Submodules carry
+the flax names (``conv``, ``norm``, ``proj``, ``cond_proj``, ...) so
+checkpoints map by rule
 (``convert/from_jax.py``). Parameters stay float32; a module computes in
 its input's dtype and casts each parameter per op, as flax does with a
 compute ``dtype``. GroupNorm statistics are float32 whatever the dtype.
@@ -22,6 +22,16 @@ the activations are shards of the time axis: ``conv1d`` exchanges halos
 with the neighbouring ranks, ``GroupNorm`` merges its statistics over
 them and ``nearest_resize_1d`` repeats within the shard; pooling and
 upsampling are shard-local as they are.
+
+int8 activation storage (``ResBlock(act_int8_min_t=M)``, a serving-only
+option): a ResBlock quantizes (``ops/qact.py``) the inputs of its
+convolutions and its output where their time axis is at least M long, as
+the JAX package's ``_maybe_quantize`` does; ``conv1d``/``Conv1d`` and
+``GroupNorm`` take such a ``QAct`` and run the int8 convolution and the
+int8 GroupNorm kernels, pooling and upsampling stay int8, and the skip is
+dequantized before the residual add. The int8 convolution goes through
+the same column-parallel funnel under tensor parallelism; sequence
+parallelism has no int8 path (the models refuse it).
 """
 
 import math
@@ -37,6 +47,8 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.group_norm import group_norm
+from ..ops.qact import (QAct, conv1d_int8, dequantize, qact_avg_pool, qact_group_norm,
+                        qact_upsample, quantize)
 from ..parallel.sequence import (active_mesh, seq_sharded_conv1d, seq_sharded_group_norm,
                                  seq_sharded_resize)
 from ..parallel.tensor import column_parallel, cut_axis, whole
@@ -58,6 +70,7 @@ __all__ = [
     "ResBlock",
     "Dropout",
     "remat_policy",
+    "maybe_quantize",
 ]
 
 
@@ -81,11 +94,23 @@ def channels_first(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).transpose(1, 2).clone(memory_format=torch.contiguous_format)
 
 
-def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
+def conv1d(x: Union[torch.Tensor, QAct], conv: nn.Conv1d) -> torch.Tensor:
     """Run ``conv`` on [N, C, T] in x's dtype (column-parallel when its
     weight was cut over the model group; on a time shard with its halos
-    under sequence parallelism)."""
+    under sequence parallelism). A ``QAct`` runs the int8 convolution, its
+    output in the activation's compute dtype."""
     mesh = active_mesh()
+    if isinstance(x, QAct):
+        if mesh is not None:
+            raise ValueError("sequence parallelism has no int8 activation path")
+
+        def run_int8(q):
+            return conv1d_int8(QAct(q, x.scale, x.dtype), conv.weight, conv.bias,
+                               stride=conv.stride[0], dilation=conv.dilation[0], conv=conv)
+
+        if cut_axis(conv, "weight") is not None:
+            return column_parallel(run_int8, x.q, 1)
+        return run_int8(x.q)
     if mesh is not None:
         if cut_axis(conv, "weight") is not None:
             raise ValueError("sequence parallelism does not compose with tensor parallelism")
@@ -134,7 +159,7 @@ class Conv1d(nn.Module):
             padding=(kernel_size - 1) * dilation // 2,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Union[torch.Tensor, QAct]) -> torch.Tensor:
         return conv1d(x, self.conv)
 
 
@@ -144,8 +169,9 @@ class GroupNorm(nn.Module):
     h*(ca+1)+cb and exact GELU — all one stats and one apply kernel on the
     card (ops/group_norm.py). With grad enabled and an input that requires
     it, the card runs it through ``GroupNormFunction``, whose backward is
-    the hand-written backward kernel. ``norm`` holds the affine weight and
-    bias."""
+    the hand-written backward kernel. A ``QAct`` input (no FiLM) runs the
+    int8 GroupNorm kernels, its output in the activation's compute dtype.
+    ``norm`` holds the affine weight and bias."""
 
     def __init__(
         self, channels: int, max_groups: int = 32, eps: float = 1e-5,
@@ -159,9 +185,14 @@ class GroupNorm(nn.Module):
 
     def forward(
         self,
-        x: torch.Tensor,
+        x: Union[torch.Tensor, QAct],
         film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
+        if isinstance(x, QAct):
+            if film is not None:
+                raise ValueError("the int8 GroupNorm takes no FiLM")
+            return qact_group_norm(x, whole(self.norm, "weight"), whole(self.norm, "bias"),
+                                   self.norm.num_groups, self.norm.eps, self.use_gelu)
         mesh = active_mesh()
         if mesh is not None:
             return seq_sharded_group_norm(mesh, x, whole(self.norm, "weight"),
@@ -229,6 +260,12 @@ def nearest_resize_1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
         t / out_len
     )
     return torch.index_select(x, -1, torch.floor(pos).long())
+
+
+def maybe_quantize(h: torch.Tensor, min_t: int) -> Union[torch.Tensor, QAct]:
+    """h stored as int8 (``quantize``) when int8 storage is on (min_t > 0)
+    and h's time axis is at least min_t long; else h."""
+    return quantize(h) if min_t and h.shape[-1] >= min_t else h
 
 
 class Dropout:
@@ -307,6 +344,13 @@ class ResBlock(nn.Module):
     before ``conv_out``. Its keep-mask is taken before the block runs, so a
     rematerialised block reruns with the same mask.
 
+    ``act_int8_min_t`` > 0 stores the inputs of ``conv_in`` and
+    ``conv_out`` and the block output as int8 (``QAct``) where their time
+    axis is at least that long (JAX ``ResBlock._maybe_quantize``); the
+    quantization of ``conv_out``'s input follows ``norm_mid``'s apply, which
+    carries the FiLM and GELU. The block then takes a ``QAct`` input too. A
+    serving-only option: a forward with dropout raises.
+
     ``remat`` ("full", "convs" or None, see ``remat_policy``) applies when
     grad is enabled. "convs" checkpoints the main path alone: in the
     port's models the skip path's 1x1 projection exists only where the
@@ -323,10 +367,12 @@ class ResBlock(nn.Module):
         scale_factor: float = 1.0,
         dilation: int = 2,
         remat: Union[bool, str, None] = None,
+        act_int8_min_t: int = 0,
     ):
         super().__init__()
         out_ch = out_channels or in_channels
         self.scale_factor = scale_factor
+        self.act_int8_min_t = act_int8_min_t
         self.out_channels = out_ch
         self.remat = remat_policy(remat)
         self.norm_in = GroupNorm(in_channels, use_gelu=True)
@@ -340,12 +386,16 @@ class ResBlock(nn.Module):
             Conv1d(in_channels, out_ch, 1) if in_channels != out_ch else None
         )
 
-    def _resize(self, x: torch.Tensor) -> torch.Tensor:
+    def _resize(self, x: Union[torch.Tensor, QAct]) -> Union[torch.Tensor, QAct]:
         if self.scale_factor == 1.0:
             return x
         if self.scale_factor < 1.0:
-            return avg_pool_1d(x, int(round(1.0 / self.scale_factor)))
-        return nearest_upsample_1d(x, int(round(self.scale_factor)))
+            factor = int(round(1.0 / self.scale_factor))
+            return qact_avg_pool(x, factor) if isinstance(x, QAct) else avg_pool_1d(x, factor)
+        factor = int(round(self.scale_factor))
+        if isinstance(x, QAct):
+            return qact_upsample(x, factor)
+        return nearest_upsample_1d(x, factor)
 
     def out_length(self, t: int) -> int:
         if self.scale_factor == 1.0:
@@ -360,6 +410,8 @@ class ResBlock(nn.Module):
     ) -> torch.Tensor:
         if (emb is not None) != (self.cond_proj is not None):
             raise ValueError("pass an embedding iff the block was built with one")
+        if self.act_int8_min_t and dropout is not None:
+            raise ValueError("int8 activation storage is serving-only: no dropout")
         keep, keep_prob = None, 1.0
         if dropout is not None:
             n, _, t = x.shape
@@ -376,10 +428,10 @@ class ResBlock(nn.Module):
 
     def _block(self, x, emb, keep, keep_prob):
         h = self._main(x, emb, keep, keep_prob)
-        return self._skip(x) + h
+        return maybe_quantize(self._skip(x) + h, self.act_int8_min_t)
 
     def _main(self, x, emb, keep, keep_prob):
-        h = self.conv_in(self._resize(self.norm_in(x)))
+        h = self.conv_in(maybe_quantize(self._resize(self.norm_in(x)), self.act_int8_min_t))
         film = None
         if emb is not None:
             cond_a, cond_b = linear(gelu(emb), self.cond_proj).chunk(2, dim=-1)
@@ -387,10 +439,12 @@ class ResBlock(nn.Module):
         h = self.norm_mid(h, film)
         if keep is not None:
             h = apply_keep_mask(h, keep, keep_prob)
-        return self.conv_out(h)
+        return self.conv_out(maybe_quantize(h, self.act_int8_min_t))
 
     def _skip(self, x):
         skip = self._resize(x)
         if self.skip_proj is not None:
             skip = self.skip_proj(skip)
+        if isinstance(skip, QAct):
+            skip = dequantize(skip, skip.dtype)
         return skip

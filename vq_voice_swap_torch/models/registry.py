@@ -4,7 +4,9 @@ encoders "unet" | "unet128" | "unet128-dilated" | "wavegrad" |
 "conv-mfcc-ulaw" | "conv-mfcc-ulaw-v2" | "conv-mfcc-linear".
 
 ``remat`` reaches the UNet predictor and the UNet encoders, as in the JAX
-package; the WaveGrad and MFCC modules take no remat and ignore it."""
+package; the WaveGrad and MFCC modules take no remat and ignore it.
+``act_int8_min_t`` (int8 activation storage, ``ops/qact.py``) is a UNet
+option: the WaveGrad and MFCC modules refuse it."""
 
 from typing import Optional, Union
 
@@ -27,10 +29,12 @@ def make_predictor(
     dtype: Optional[torch.dtype] = None,
     fuse_levels: int = 0,
     remat: Union[bool, str, None] = None,
+    act_int8_min_t: int = 0,
 ) -> nn.Module:
     """Create an epsilon-predictor module from a human-readable name;
-    ``fuse_levels`` is UNetPredictor's serving option. ``dropout`` is run
-    by the caller (``DiffusionModel.predict_eps``); wavegrad has none."""
+    ``fuse_levels`` and ``act_int8_min_t`` are UNetPredictor's serving
+    options. ``dropout`` is run by the caller
+    (``DiffusionModel.predict_eps``); wavegrad has none."""
     if pred_name == "unet":
         return UNetPredictor(
             base_channels=base_channels,
@@ -39,10 +43,14 @@ def make_predictor(
             dtype=dtype,
             fuse_levels=fuse_levels,
             remat=remat,
+            act_int8_min_t=act_int8_min_t,
         )
     if pred_name == "wavegrad":
         if dropout:
             raise ValueError("dropout is not supported for wavegrad")
+        if act_int8_min_t:
+            raise ValueError("int8 activation storage is implemented for the unet "
+                             "predictor only")
         if fuse_levels:
             raise ValueError("fuse_levels is a unet option; wavegrad has no fused blocks")
         if cond_channels and cond_channels % base_channels:
@@ -63,13 +71,16 @@ def make_encoder(
     cond_mult: int = 16,
     dtype: Optional[torch.dtype] = None,
     remat: Union[bool, str, None] = None,
+    act_int8_min_t: int = 0,
 ) -> nn.Module:
     """Create an encoder module from a human-readable name."""
     out_channels = base_channels * cond_mult
+    if act_int8_min_t and not enc_name.startswith("unet"):
+        raise ValueError("int8 activation storage is implemented for the unet encoders only")
     if enc_name == "unet":
         return UNetEncoder(
             base_channels=base_channels, out_channels=out_channels, dtype=dtype,
-            remat=remat,
+            remat=remat, act_int8_min_t=act_int8_min_t,
         )
     if enc_name in ("unet128", "unet128-dilated"):
         return UNetEncoder(
@@ -79,6 +90,7 @@ def make_encoder(
             out_channels=out_channels,
             dtype=dtype,
             remat=remat,
+            act_int8_min_t=act_int8_min_t,
         )
     if enc_name == "conv-mfcc-ulaw":
         return ConvMFCCEncoder(

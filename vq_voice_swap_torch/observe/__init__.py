@@ -1,5 +1,5 @@
-from .logger import SAVED_MSG, Logger
+from .logger import SAVED_MSG, Logger, read_log
 from .smoothing import moving_average
 from .tracker import LossTracker
 
-__all__ = ["SAVED_MSG", "Logger", "moving_average", "LossTracker"]
+__all__ = ["SAVED_MSG", "Logger", "read_log", "moving_average", "LossTracker"]

@@ -1,6 +1,7 @@
-"""Plain-text training log with save sentinels and resume truncation
-(counterpart of ``vq_voice_swap_tpu/observe/logger.py``, whose
-``read_log`` reads what this one writes).
+"""Plain-text training log with save sentinels and resume truncation, and
+its reader ``read_log`` (counterpart of
+``vq_voice_swap_tpu/observe/logger.py``; either package's reader reads
+what either writes).
 
 Lines are ``step N: k=v k=v ...`` with five decimals; a ``# saved`` line
 follows each checkpoint. On resume the log is truncated just past the
@@ -15,11 +16,48 @@ the worker writes too.
 import os
 import re
 import threading
-from typing import Tuple
+from typing import Any, Dict, Iterator, TextIO, Tuple, Union
 
-__all__ = ["Logger", "SAVED_MSG"]
+__all__ = ["Logger", "read_log", "SAVED_MSG"]
 
 SAVED_MSG = "# saved\n"
+
+_STEP_LINE = re.compile(r"^step (\d+): (.*)$")
+
+
+def _parse_step_line(line: str) -> Tuple[int, Dict[str, float]]:
+    """``step N: k=v k=v`` as (N, {k: v}); a ValueError otherwise."""
+    m = _STEP_LINE.match(line)
+    if m is None:
+        raise ValueError(f"not a step line: {line!r}")
+    fields: Dict[str, float] = {}
+    for token in m.group(2).split(" "):
+        key, sep, value = token.partition("=")
+        if not sep:
+            raise ValueError(f"bad field {token!r}")
+        fields[key] = float(value)
+    return int(m.group(1)), fields
+
+
+def read_log(source: Union[str, TextIO]) -> Iterator[Tuple[int, Dict[str, Any]]]:
+    """The (step, {key: float}) entries of a log file or open text stream:
+    comment lines (``# ...``) are skipped, iteration stops at the first
+    blank line, and a malformed line raises a ValueError naming its 1-based
+    line number."""
+    if isinstance(source, str):
+        with open(source, "rt") as f:
+            yield from read_log(f)
+            return
+    for line_no, raw in enumerate(source, start=1):
+        stripped = raw.rstrip()
+        if not stripped:
+            return
+        if stripped[0] == "#":
+            continue
+        try:
+            yield _parse_step_line(stripped)
+        except ValueError:
+            raise ValueError(f"unexpected log format at line {line_no}") from None
 
 
 def _scan_resume_point(path: str) -> Tuple[int, int, bool]:

@@ -21,9 +21,13 @@ Counterpart of ``vq_voice_swap_tpu/ops/fused_norm.py``:
   into b) keeps large-mean inputs accurate.
 
 So one GroupNorm, with or without FiLM, is two launches on the card and no
-torch op between them. Both kernels are memory-bound streaming passes: the
-bound is x read once (statistics), and x read once plus y written once
-(apply), at the card's memory rate.
+torch op between them. ``group_norm_coeffs_int8`` and
+``group_norm_apply_int8`` are the same two kernels reading int8 activation
+codes and their float32 scales (one, or one a channel; ``ops/qact.py``),
+dequantized in registers: the int8 serving path's GroupNorm (no FiLM),
+whose output is in the compute dtype. Both kernels are memory-bound
+streaming passes: the bound is x read once (statistics), and x read once
+plus y written once (apply), at the card's memory rate.
 
 The backward has no Pallas counterpart: it replaces the VJP the JAX package
 takes of GroupNorm (``_fgn_bwd``, fused_norm.py:280-288, and flax's
@@ -78,6 +82,9 @@ __all__ = [
     "group_norm_coeffs_plain",
     "group_norm_stats",
     "group_norm_apply",
+    "group_norm_coeffs_int8",
+    "group_norm_apply_int8",
+    "dequantize_codes",
     "group_stats_plain",
     "group_norm_apply_plain",
     "merge_partials",
@@ -161,7 +168,25 @@ def _check_coeffs(x, weight, bias, film: Film, out) -> None:
                              f"{tuple(out.shape)} strides {out.stride()}")
 
 
+def _check_codes(q: torch.Tensor, scale: torch.Tensor) -> None:
+    if q.ndim != 3 or q.dtype != torch.int8 or not q.is_contiguous():
+        raise ValueError(f"expected contiguous int8 codes [N, C, T], got {q.dtype} "
+                         f"{tuple(q.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"GroupNorm runs on CPU or CUDA, not {q.device}")
+    if (scale.dtype != torch.float32 or scale.shape not in ((), (q.shape[1],))
+            or scale.device != q.device or not scale.is_contiguous()):
+        raise ValueError(f"scale must be a contiguous float32 () or ({q.shape[1]},) on "
+                         f"{q.device}, got {scale.dtype} {tuple(scale.shape)} on {scale.device}")
+
+
 # ------------------------------------------------------------ plain versions
+
+
+def dequantize_codes(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Float32 values of int8 codes [N, C, T]: q * scale, the scale one
+    float32 () or one a channel (C,)."""
+    return q.float() * (scale if scale.ndim == 0 else scale[:, None])
 
 
 def group_stats_plain(
@@ -368,8 +393,8 @@ def _apply_kernel():
     import triton.language as tl
 
     @triton.jit
-    def apply_kernel(x_ptr, mean_ptr, a_ptr, b_ptr, y_ptr, T,
-                     GELU: tl.constexpr, BLOCK: tl.constexpr):
+    def apply_kernel(x_ptr, mean_ptr, a_ptr, b_ptr, y_ptr, T, s_ptr, C, S_STRIDE,
+                     GELU: tl.constexpr, INT8: tl.constexpr, BLOCK: tl.constexpr):
         row = tl.program_id(0)
         idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
         mask = idx < T
@@ -377,7 +402,11 @@ def _apply_kernel():
         mean = tl.load(mean_ptr + row)
         a = tl.load(a_ptr + row)
         b = tl.load(b_ptr + row)
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        if INT8:  # codes times the row's channel scale
+            x = tl.load(x_ptr + offs, mask=mask, other=0).to(tl.float32)
+            x = x * tl.load(s_ptr + (row % C) * S_STRIDE)
+        else:
+            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
         y = (x - mean) * a + b
         if GELU:
             y = 0.5 * y * (1.0 + tl.math.erf(y * 0.7071067811865476))
@@ -397,7 +426,8 @@ def _stats_library():
                                f"the wrapper expects {want}")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.group_norm_stats.argtypes = (
-        [i, p, i, i, i, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, i, ll, p, p, p, ll, p, p]
+        [i, p, i, i, i, i, i, ll, i, p, p, p, p, ctypes.c_float, p, p, i, ll, p, p, p, ll, p, p,
+         i, p]
     )
     lib.group_norm_stats.restype = i
     return lib
@@ -447,14 +477,17 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _launch_stats(x, num_groups, out_mean, out_a, out_b, out_ld,
-                  weight=None, bias=None, eps=0.0, film: Film = None, out_group=None) -> None:
-    """One launch of the statistics kernel (see csrc/group_norm_stats.cu)."""
+                  weight=None, bias=None, eps=0.0, film: Film = None, out_group=None,
+                  scale=None) -> None:
+    """One launch of the statistics kernel (see csrc/group_norm_stats.cu);
+    ``scale`` marks x as int8 codes."""
     n, c, t = x.shape
     spans, span = n * num_groups, (c // num_groups) * t
     target = _sm_count(x.device) * STATS_BLOCKS_PER_SM
     slices = max(1, min(target // max(spans, 1), -(-span // STATS_TILE), STATS_MAX_SLICES))
     chunk = -(-span // slices)
-    chunk = -(-chunk // 8) * 8
+    step = 16 if scale is not None else 8  # a slice starts on a 16-byte load
+    chunk = -(-chunk // step) * step
     # 16-byte loads need the span, and so every slice, to start 16-byte aligned.
     vec = span % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
     part = None
@@ -465,14 +498,16 @@ def _launch_stats(x, num_groups, out_mean, out_a, out_b, out_ld,
     if film is not None:
         ca, cb = film
         film_code, film_ld = _DTYPE_CODE[ca.dtype], ca.stride(0)
+    dtype_code = 2 if scale is not None else _DTYPE_CODE[x.dtype]
+    scale_stride = 0 if scale is None or scale.ndim == 0 else 1
     stream = torch.cuda.current_stream(x.device)
     with torch.cuda.device(x.device):
         err = _stats_library().group_norm_stats(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), n, c, t, num_groups, slices, chunk,
+            dtype_code, x.data_ptr(), n, c, t, num_groups, slices, chunk,
             int(vec), _ptr(part), tickets(stream, spans).data_ptr(), _ptr(weight),
             _ptr(bias), float(eps), _ptr(ca), _ptr(cb), film_code, film_ld,
             out_mean.data_ptr(), out_a.data_ptr(), _ptr(out_b), out_ld, _ptr(out_group),
-            stream.cuda_stream,
+            _ptr(scale), scale_stride, stream.cuda_stream,
         )
     if err:
         raise RuntimeError(f"group_norm_stats kernel launch failed: CUDA error {err}")
@@ -539,6 +574,16 @@ def group_norm_apply(
     """y = (x - mean) * a + b per (n, channel) row of [N, C, T], optional
     exact GELU, in x's dtype. mean/a/b: float32 contiguous [N, C]."""
     _check_x(x)
+    _check_apply_coeffs(x, mean, a, b)
+    if x.device.type == "cpu":
+        return group_norm_apply_plain(x, mean, a, b, use_gelu)
+    y = torch.empty_like(x)
+    _launch_apply(x, mean, a, b, use_gelu, y)
+    group_norm_apply.launches += 1
+    return y
+
+
+def _check_apply_coeffs(x, mean, a, b) -> None:
     for name, v in (("mean", mean), ("a", a), ("b", b)):
         if v.shape != x.shape[:2] or v.dtype != torch.float32:
             raise ValueError(
@@ -547,17 +592,67 @@ def group_norm_apply(
             )
         if not v.is_contiguous() or v.device != x.device:
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    if x.device.type == "cpu":
-        return group_norm_apply_plain(x, mean, a, b, use_gelu)
+
+
+def _launch_apply(x, mean, a, b, use_gelu, y, scale=None) -> None:
+    """One launch of the Triton apply kernel; ``scale`` marks x as int8 codes."""
     triton, apply_kernel = _apply_kernel()
     n, c, t = x.shape
     block = min(APPLY_BLOCK, triton.next_power_of_2(t))
-    y = torch.empty_like(x)
+    stride = 0 if scale is None or scale.ndim == 0 else 1
     with torch.cuda.device(x.device):
         apply_kernel[(n * c, triton.cdiv(t, block))](
-            x, mean, a, b, y, t, GELU=use_gelu, BLOCK=block, num_warps=4,
+            x, mean, a, b, y, t, mean if scale is None else scale, c, stride,
+            GELU=use_gelu, INT8=scale is not None, BLOCK=block, num_warps=4,
         )
-    group_norm_apply.launches += 1
+
+
+def group_norm_coeffs_int8(
+    q: torch.Tensor,
+    scale: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``group_norm_coeffs`` (no FiLM) of the values q * scale of int8
+    codes q [N, C, T] and a float32 scale () or (C,): one launch of the
+    statistics kernel's int8 mode on the card, the codes dequantized in
+    registers."""
+    _check_codes(q, scale)
+    _check_groups(q, num_groups)
+    _check_coeffs(q, weight, bias, None, None)
+    if q.device.type == "cpu":
+        return group_norm_coeffs_plain(dequantize_codes(q, scale), num_groups, weight, bias,
+                                       eps)
+    out = torch.empty((3, *q.shape[:2]), dtype=torch.float32, device=q.device)
+    _launch_stats(q, num_groups, out[0], out[1], out[2], out.stride(1),
+                  weight.float().contiguous(), bias.float().contiguous(), eps, scale=scale)
+    group_norm_coeffs_int8.launches += 1
+    return out[0], out[1], out[2]
+
+
+def group_norm_apply_int8(
+    q: torch.Tensor,
+    scale: torch.Tensor,
+    mean: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    use_gelu: bool,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """``group_norm_apply`` of the values q * scale of int8 codes, the
+    output in ``dtype`` (float32 or bfloat16): one launch of the Triton
+    apply kernel's int8 mode on the card."""
+    _check_codes(q, scale)
+    _check_apply_coeffs(q, mean, a, b)
+    if dtype not in _DTYPES:
+        raise ValueError(f"GroupNorm writes float32 or bfloat16, not {dtype}")
+    if q.device.type == "cpu":
+        return group_norm_apply_plain(dequantize_codes(q, scale), mean, a, b, use_gelu).to(dtype)
+    y = torch.empty(q.shape, dtype=dtype, device=q.device)
+    _launch_apply(q, mean, a, b, use_gelu, y, scale)
+    group_norm_apply_int8.launches += 1
     return y
 
 
@@ -821,6 +916,8 @@ def _bwd_two_kernel(x, dy, dx, num_groups, route, args, sums, stream) -> None:
 group_norm_coeffs.launches = 0
 group_norm_stats.launches = 0
 group_norm_apply.launches = 0
+group_norm_coeffs_int8.launches = 0
+group_norm_apply_int8.launches = 0
 group_norm_backward.launches = 0
 group_norm_bwd_reduce.launches = 0
 group_norm_bwd_dx.launches = 0

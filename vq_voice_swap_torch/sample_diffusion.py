@@ -28,7 +28,12 @@ are complete and skipped is what rank 0 finds, broadcast to every rank (a
 rank on another host need not see the directory). The classifier stays
 whole.
 
-int8 activations (--act-int8) are not ported yet.
+--act-int8 MIN_T serves the UNet with int8-stored activations at the
+levels whose time axis is at least MIN_T (``ops/qact.py``; 0 keeps the
+checkpoint's setting). Its amax covers the whole batch, so under
+--tensor-parallel with --act-int8 every data row runs the whole batch
+rather than its rows: the samples then match the one-process run's.
+--act-int8 with --fuse-levels raises (the fused kernels are float only).
 
 Example:
     python -m vq_voice_swap_torch.sample_diffusion --checkpoint-path model.npz \\
@@ -88,7 +93,9 @@ def sample_batch(args, model: DiffusionModel, warp, batch: int, batch_index: int
                                    device=device)
     model_labels = labels if model.num_labels is not None else None
     rows = slice(None)
-    if data_size() > 1 and batch % data_size() == 0:
+    # An int8 predictor's quantization scales span the whole batch: split
+    # over data rows, each row would take its own.
+    if data_size() > 1 and batch % data_size() == 0 and not model.act_int8_min_t:
         rows = slice(data_rank(), None, data_size())
 
     def on_rows(fn):
@@ -135,7 +142,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     init_grid(args.tensor_parallel, device)
     model = DiffusionModel.load(
         args.checkpoint_path, dtype="bfloat16" if args.bf16 else None,
-        device=device, fuse_levels=args.fuse_levels,
+        device=device, fuse_levels=args.fuse_levels, act_int8_min_t=args.act_int8 or None,
     )
     if args.tensor_parallel > 1:
         shard_model_tp(model)
@@ -209,6 +216,12 @@ def arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fuse-levels", default=0, type=int,
                         help="run the same-resolution ResBlocks of the UNet's first "
                              "K levels through the fused ResBlock kernels")
+    parser.add_argument("--act-int8", default=0, type=int, metavar="MIN_T",
+                        help="serve with int8-stored activations at UNet "
+                             "levels whose time axis is >= MIN_T (0 = off; "
+                             "e.g. 16000 quantizes the top three levels of "
+                             "a 4-s 16 kHz clip). Quality-gated by the 10k "
+                             "Frechet protocol")
     parser.add_argument("--tensor-parallel", type=int, default=1,
                         help="model-axis size of a 2-D data x model grid of the ranks of "
                              "a launched run; weights shard on their output-feature axis "

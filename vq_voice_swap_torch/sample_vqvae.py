@@ -6,8 +6,10 @@ that ffmpeg decodes, through ffmpeg), encodes it to VQ codes (or raw encoder
 output with --no-vq), decodes with --label and the x0 constraint, and
 optionally reports how many codes survive a re-encode (--check-vq).
 --enc-pred-path guides the decoder with an encoder predictor's gradient,
-scaled by --enc-pred-scale. Runs on CUDA unless --device names another
-device.
+scaled by --enc-pred-scale. --act-int8 MIN_T serves the decoder with
+int8-stored activations at the UNet levels whose time axis is at least
+MIN_T (``ops/qact.py``; 0 keeps the checkpoint's setting). Runs on CUDA
+unless --device names another device.
 
 Launched by ``torchrun`` (``python -m torch.distributed.run
 --nproc-per-node N -m vq_voice_swap_torch.sample_vqvae ...``),
@@ -66,7 +68,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     init_grid(args.tensor_parallel, device)
 
     print("loading model from checkpoint...")
-    model = VQVAE.load(args.checkpoint_path, device=device)
+    model = VQVAE.load(args.checkpoint_path, device=device,
+                       act_int8_min_t=args.act_int8 or None)
     if model.num_labels is not None and not 0 <= args.label < model.num_labels:
         raise SystemExit(f"label {args.label} out of range [0, {model.num_labels})")
     if args.tensor_parallel > 1:
@@ -124,6 +127,10 @@ def arg_parser() -> argparse.ArgumentParser:
                              "DPM-Solver++(2M), second-order")
     parser.add_argument("--eta", type=float, default=0.0,
                         help="DDIM stochasticity (0 = deterministic)")
+    parser.add_argument("--act-int8", default=0, type=int, metavar="MIN_T",
+                        help="serve the decoder with int8-stored "
+                             "activations at UNet levels with T >= MIN_T "
+                             "(0 = off)")
     parser.add_argument("--tensor-parallel", type=int, default=1,
                         help="model-axis size of a 2-D data x model grid of the ranks of "
                              "a launched run; weights shard on their output-feature axis "

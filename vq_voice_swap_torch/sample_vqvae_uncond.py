@@ -14,7 +14,9 @@ Launched by ``torchrun``, ``--tensor-parallel T`` cuts the model's
 weights over groups of T ranks (``parallel/tensor.py``); the one clip is
 converted on every data row and rank 0 alone writes the output.
 
-int8 activations (--act-int8) are not ported yet.
+--act-int8 MIN_T serves the decoder with int8-stored activations at the
+UNet levels whose time axis is at least MIN_T (``ops/qact.py``; 0 keeps
+the checkpoint's setting).
 
 Example:
     python -m vq_voice_swap_torch.sample_vqvae_uncond --label 3 \\
@@ -44,7 +46,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     init_grid(args.tensor_parallel, device)
 
     print("loading model from checkpoint...")
-    model = VQVAE.load(args.checkpoint_path, device=device)
+    model = VQVAE.load(args.checkpoint_path, device=device,
+                       act_int8_min_t=args.act_int8 or None)
     # Label 0 is the unconditional token, so speaker l is label l + 1.
     if model.num_labels is None or not 0 <= args.label < model.num_labels - 1:
         raise SystemExit(f"label {args.label} out of range for a model with "
@@ -112,6 +115,10 @@ def arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-vq", action="store_true")
     parser.add_argument("--check-vq", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--act-int8", default=0, type=int, metavar="MIN_T",
+                        help="serve the decoder with int8-stored "
+                             "activations at UNet levels with T >= MIN_T "
+                             "(0 = off)")
     parser.add_argument("--tensor-parallel", type=int, default=1,
                         help="model-axis size of a 2-D data x model grid of the ranks of "
                              "a launched run; weights shard on their output-feature axis "
