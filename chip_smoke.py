@@ -68,10 +68,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    taps, dilations 1 and 2 (f32 and bf16 out), [16, 128, 64000] 128 -> 64,
    the 1x1 128 -> 64 projection with a per-channel scale, [16, 128, 16000]
    128 -> 128 and [3, 8, 1000] -> 12 at dilation 32 (the plain version a
-   float64 convolution of the codes, exact); quantize (CUDA) of f32, bf16
-   and zero input; the GroupNorm statistics and apply kernels' int8 modes
-   with a per-tensor and a per-channel scale (1e-4); each timed beside its
-   bound and plain version (the bf16 cuDNN conv1d of the same shape
+   float64 convolution of the codes, exact), f32 and bf16 out, and [16,
+   256, 16000] 256 -> 128; the quantize kernels (Triton) of f32, bf16 and
+   zero input, and at each prologue (the GroupNorm apply on int8 input
+   and on float input with FiLM, the residual add with an int8 and a
+   float skip), f32 and bf16 at [16, 64, 64000], against the unfused card
+   route (the Triton apply or the eager add, then quantize) and their
+   plain versions, codes and scale bit for bit; quantize-then-upsample
+   against upsample-then-quantize; the GroupNorm statistics and apply
+   kernels' int8 modes with a per-tensor and a per-channel scale (1e-4);
+   each timed beside its bound and plain version (a fused quantize also
+   beside the unfused route; the bf16 cuDNN conv1d of the same shape
    printed as a different function, for scale). Every ticket counter
    (ops/tickets.py) is 0 after this phase, after phase 4 and after the
    last.
@@ -215,8 +222,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    --act-int8 16000`` on phase 3's unconditional unet64 (16 x 4 s, 5 DPM++
    steps) and ``sample_vqvae --act-int8 16000`` on phase 3's swap model
    (f32, 10 DPM++ steps), each with its launches asserted from the code
-   (a unet64 call: 122 quantize launches, 50 int8 convolutions, 21 int8
-   and 110 float GroupNorms), then timed in turns with the same CLI
+   (a unet64 call, ``INT8_PER_PREDICTOR``: 61 quantizes of two launches,
+   38 of them with the GroupNorm apply and 20 with the residual add
+   fused in, 50 int8 convolutions, 21 int8 GroupNorm statistics and 4
+   applies, 110 float statistics and 89 applies), then timed in turns with the same CLI
    without --act-int8, two runs each (RTF of the medians); one predictor
    call at batch 16
    against the same call through the plain versions on the card (held by
@@ -1075,40 +1084,86 @@ def split_quantize(x: torch.Tensor):
                             qact.quantize(x[:, c:].contiguous()))
 
 
+def quantize_sites(dev, gen, n: int, c: int, t: int, dtype):
+    """The int8 path's quantize sites at [n, c, t] in ``dtype``, each as
+    (label, fused call, the unfused card route's call, the fused call's
+    plain version, bytes, operations): the kernels' bound counts each input
+    read once and the codes written once."""
+    x = 3.0 * torch.randn(n, c, t, generator=gen, device=dev)
+    codes = qact.quantize(x + 0.5)
+    codes = qact.QAct(codes.q, codes.scale, dtype)
+    h = (torch.randn(n, c, t, generator=gen, device=dev) + 0.3).to(dtype)
+    w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    b = 0.2 * torch.randn(c, generator=gen, device=dev)
+    film = tuple((0.5 * torch.randn(n, c, generator=gen, device=dev)).to(dtype) for _ in "ab")
+    int8_coeffs = gn.group_norm_coeffs_int8(codes.q, codes.scale, 32, w, b, 1e-5)
+    float_coeffs = gn.group_norm_coeffs(h, 32, w, b, 1e-5, film)
+    skip = (2.0 * torch.randn(n, c, t, generator=gen, device=dev)).to(dtype)
+    el, size = n * c * t, torch.tensor([], dtype=dtype).element_size()
+    return [
+        ("norm_in, int8 input", lambda: qact.quantize_group_norm(codes, *int8_coeffs, True),
+         lambda: qact.quantize(gn.group_norm_apply_int8(codes.q, codes.scale, *int8_coeffs,
+                                                        True, dtype)),
+         lambda: qact.quantize_group_norm_plain(codes, *int8_coeffs, True), 2 * el, 30 * el),
+        ("norm_mid, FiLM", lambda: qact.quantize_group_norm(h, *float_coeffs, True),
+         lambda: qact.quantize(gn.group_norm_apply(h, *float_coeffs, True)),
+         lambda: qact.quantize_group_norm_plain(h, *float_coeffs, True), (size + 1) * el,
+         30 * el),
+        ("residual, int8 skip", lambda: qact.quantize_residual(codes, h),
+         lambda: qact.quantize(qact.dequantize(codes, dtype) + h),
+         lambda: qact.quantize_residual_plain(codes, h), (size + 2) * el, 6 * el),
+        ("residual, float skip", lambda: qact.quantize_residual(skip, h),
+         lambda: qact.quantize(skip + h),
+         lambda: qact.quantize_residual_plain(skip, h), (2 * size + 1) * el, 5 * el),
+        ("no prologue", lambda: qact.quantize(h), lambda: qact.quantize(h),
+         lambda: qact.quantize_plain(h), (size + 1) * el, 4 * el),
+    ]
+
+
+def code_gap(got, want) -> float:
+    """The share of codes that differ (0.0 when the codes are equal)."""
+    return (got.q != want.q).float().mean().item()
+
+
 def check_int8_kernels(dev, gen):
     """The int8 serving path's kernels against their plain versions on the
-    card: the convolution and quantize bit for bit, the int8 GroupNorm
-    modes within 1e-5 / 1e-4; returns their JSON entries (launches are
-    phase 10's)."""
+    card: the convolution and the plain quantize bit for bit, each fused
+    quantize bit for bit against the unfused card route and within one
+    code step of its plain version, the int8 GroupNorm modes within 1e-5 /
+    1e-4; returns their JSON entries (launches are phase 10's)."""
     n, t = BATCH, SAMPLES
     cases = [
-        # (label, n, cin, cout, t, taps, dilation, per-channel scale, out dtype)
-        ("64->64 d1", n, 64, 64, t, 3, 1, False, torch.float32),
-        ("64->64 d2", n, 64, 64, t, 3, 2, False, torch.float32),
-        ("64->64 d2 bf16", n, 64, 64, t, 3, 2, False, torch.bfloat16),
-        ("128->64", n, 128, 64, t, 3, 1, False, torch.float32),
-        ("1x1 128->64, per-channel", n, 128, 64, t, 1, 1, True, torch.float32),
-        ("128->128 at 16000", n, 128, 128, t // 4, 3, 1, False, torch.bfloat16),
-        ("8->12 T 1000 d32", 3, 8, 12, 1000, 3, 32, False, torch.float32),
+        # (label, n, cin, cout, t, taps, dilation, per-channel scale)
+        ("64->64 d1", n, 64, 64, t, 3, 1, False),
+        ("64->64 d2", n, 64, 64, t, 3, 2, False),
+        ("128->64", n, 128, 64, t, 3, 1, False),
+        ("1x1 128->64, per-channel", n, 128, 64, t, 1, 1, True),
+        ("128->128 at 16000", n, 128, 128, t // 4, 3, 1, False),
+        ("256->128 at 16000", n, 256, 128, t // 4, 3, 1, False),
+        ("8->12 T 1000 d32", 3, 8, 12, 1000, 3, 32, False),
     ]
-    for label, nn_, cin, cout, tt, taps, dil, per_channel, dtype in cases:
+    conv_err = 0.0
+    for label, nn_, cin, cout, tt, taps, dil, per_channel in cases:
         x = torch.randn(nn_, cin, tt, generator=gen, device=dev)
         if per_channel:
             x[:, cin // 2:] *= 20.0
-        qa = split_quantize(x) if per_channel else qact.quantize(x)
-        qa = qact.QAct(qa.q, qa.scale, dtype)
+        q0 = split_quantize(x) if per_channel else qact.quantize(x)
         w = torch.randn(cout, cin, taps, generator=gen, device=dev) / (cin * taps) ** 0.5
         b = 0.1 * torch.randn(cout, generator=gen, device=dev)
-        got = qact.conv1d_int8(qa, w, b, dilation=dil)
-        again = qact.conv1d_int8(qa, w, b, dilation=dil)
-        want = conv_int8_plain(qa, w, b, 1, dil)
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs().max().item()
-        print(f"int8 conv {label} [{nn_}, {cin}, {tt}] -> {cout}, {taps} taps, "
-              f"{str(dtype)[6:]} out: max |kernel - plain| {diff:.3g}, bit-equal "
-              f"{torch.equal(got, want)}, same bits twice {torch.equal(got, again)}")
-        assert torch.equal(got, want) and torch.equal(got, again), label
-        del x, qa, got, again, want
+        for dtype in (torch.float32, torch.bfloat16):
+            qa = qact.QAct(q0.q, q0.scale, dtype)
+            got = qact.conv1d_int8(qa, w, b, dilation=dil)
+            again = qact.conv1d_int8(qa, w, b, dilation=dil)
+            want = conv_int8_plain(qa, w, b, 1, dil)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs().max().item()
+            print(f"int8 conv {label} [{nn_}, {cin}, {tt}] -> {cout}, {taps} taps, "
+                  f"{str(dtype)[6:]} out: max |kernel - plain| {diff:.3g}, bit-equal "
+                  f"{torch.equal(got, want)}, same bits twice {torch.equal(got, again)}")
+            assert torch.equal(got, want) and torch.equal(got, again), (label, dtype)
+            conv_err = max(conv_err, diff)
+            del got, again, want
+        del x, q0
 
     for label, x in (("f32", torch.randn(n, 64, t, generator=gen, device=dev)),
                      ("bf16", torch.randn(n, 64, t, generator=gen, device=dev).to(
@@ -1120,6 +1175,60 @@ def check_int8_kernels(dev, gen):
         print(f"quantize {label} [{n}, 64, {t}]: codes and scale bit-equal {same}, "
               f"scale {got.scale.item():.6g}")
         assert same, label
+    # Each fused quantize against the unfused card route (the Triton apply
+    # or the eager add, then quantize), bit for bit, and against its plain
+    # version (torch's GELU rounds otherwise than the kernels' erf, and the
+    # plain route rounds unfused): the scale within 1e-6, codes at most one
+    # step apart and at most 1e-5 of them differing; timed beside the
+    # unfused route, its bound and its plain version. max_abs_err is the
+    # largest |dequantized kernel - dequantized plain| of the entry point.
+    entries, errs = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, fused, unfused, plain, nbytes, ops in quantize_sites(dev, gen, n, 64, t,
+                                                                        dtype):
+            got, route, want = fused(), unfused(), plain()
+            torch.cuda.synchronize()
+            gap = code_gap(got, route)
+            step = (got.q.int() - want.q.int()).abs()
+            gap_plain, step_max = (step > 0).float().mean().item(), step.max().item()
+            scale_rel = ((got.scale - want.scale).abs() / want.scale).item()
+            err = (qact.dequantize(got) - qact.dequantize(want)).abs().max().item()
+            del step
+            print(f"quantize {label} [{n}, 64, {t}] {str(dtype)[6:]}: against the unfused "
+                  f"card route: scale bits equal {torch.equal(got.scale, route.scale)}, "
+                  f"codes that differ {gap:.3g}; against the plain version: scale "
+                  f"{scale_rel:.3g} relative apart, codes that differ {gap_plain:.3g} (at "
+                  f"most {step_max} step), max |dequantized kernel - plain| {err:.3g}")
+            assert torch.equal(got.scale, route.scale) and gap == 0.0, (label, dtype)
+            assert scale_rel <= 1e-6 and step_max <= 1 and gap_plain <= 1e-5, (
+                label, dtype, scale_rel, step_max, gap_plain)
+            ms = cuda_ms(fused, 20)
+            route_ms = cuda_ms(unfused, 20)
+            plain_ms = cuda_ms(plain, 5)
+            qb, qby = bound_ms(nbytes, ops)
+            print(f"quantize timing {label} [{n}, 64, {t}] {str(dtype)[6:]}: {ms:.4f} ms, two "
+                  f"launches ({100 * qb / ms:.1f}% of its bound {qb:.4f} by {qby}; the unfused "
+                  f"card route {route_ms:.4f}; plain {plain_ms:.4f})")
+            name = {"norm": "quantize_group_norm", "resi": "quantize_residual",
+                    "no p": "quantize"}[label[:4]]
+            errs[name] = max(errs.get(name, 0.0), err)
+            if dtype == torch.float32 and all(e["name"] != name for e in entries):
+                entries.append(dict(
+                    name=name, route="triton", source="vq_voice_swap_torch/ops/qact.py",
+                    replaces="vq_voice_swap_tpu/ops/qact.py:67", launches=0,
+                    max_abs_err=None, ms=ms, plain_ms=plain_ms, bound_ms=qb, bound_by=qby,
+                    library_ms=None))
+            del got, route, want
+    for entry in entries:
+        entry["max_abs_err"] = errs[entry["name"]]
+    # A nearest upsample commutes with the quantize: quantize then repeat
+    # the codes, as the up path's norm_in does.
+    x = torch.randn(n, 64, t // 2, generator=gen, device=dev)
+    up = qact.qact_upsample(qact.quantize(x), 2)
+    ref = qact.quantize(layers.nearest_upsample_1d(x, 2))
+    assert torch.equal(up.q, ref.q) and torch.equal(up.scale, ref.scale)
+    print("quantize then upsample the codes: upsample then quantize's bits")
+    del x, up, ref
 
     err_stats = err_apply = 0.0
     for label, c, per_channel in (("per-tensor", 64, False), ("per-channel", 128, True)):
@@ -1155,7 +1264,6 @@ def check_int8_kernels(dev, gen):
         conv.weight.copy_(w)
         conv.bias.copy_(b)
     flops = 2.0 * n * t * 64 * 64 * 3
-    entries = []
     for dtype in (torch.float32, torch.bfloat16):
         q8 = qact.QAct(qa.q, qa.scale, dtype)
         ms = cuda_ms(lambda: qact.conv1d_int8(q8, conv.weight, conv.bias, dilation=2,
@@ -1175,23 +1283,9 @@ def check_int8_kernels(dev, gen):
                 name="conv1d_int8", route="cuda",
                 source="vq_voice_swap_torch/csrc/conv1d_int8.cu",
                 replaces="vq_voice_swap_tpu/ops/qact.py:185", launches=0,
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=cb, bound_by=cby,
+                max_abs_err=conv_err, ms=ms, plain_ms=plain_ms, bound_ms=cb, bound_by=cby,
                 library_ms=None))
         del xb
-    for dtype in (torch.float32, torch.bfloat16):
-        xd = x.to(dtype)
-        ms = cuda_ms(lambda: qact.quantize(xd), 20)
-        plain_ms = cuda_ms(lambda: qact.quantize_plain(xd), 20)
-        qb, qby = bound_ms(xd.numel() * xd.element_size() + xd.numel(), 4 * xd.numel())
-        print(f"quantize timing [{n}, 64, {t}] {str(dtype)[6:]}: {ms:.4f} ms, two launches "
-              f"({100 * qb / ms:.1f}% of its bound {qb:.4f} by {qby}; plain {plain_ms:.4f})")
-        if dtype == torch.float32:
-            entries.append(dict(
-                name="quantize", route="cuda",
-                source="vq_voice_swap_torch/csrc/qact.cu",
-                replaces="vq_voice_swap_tpu/ops/qact.py:67", launches=0, max_abs_err=0.0,
-                ms=ms, plain_ms=plain_ms, bound_ms=qb, bound_by=qby, library_ms=None))
-        del xd
     ww = 1.0 + 0.2 * torch.randn(64, generator=gen, device=dev)
     bw = 0.2 * torch.randn(64, generator=gen, device=dev)
     coeffs = gn.group_norm_coeffs_int8(qa.q, qa.scale, 32, ww, bw, 1e-5)
@@ -1250,10 +1344,12 @@ COUNTED = (vqa.vq_assign, gn.group_norm_coeffs, gn.group_norm_stats, gn.group_no
            gn.group_norm_backward, gn._bwd_cluster, gn._bwd_two_kernel,
            gn.group_norm_bwd_reduce, gn.group_norm_bwd_dx,
            frb.fused_resblock_stats, frb.fused_resblock_apply,
-           qact.quantize, qact.conv1d_int8, gn.group_norm_coeffs_int8, gn.group_norm_apply_int8)
+           qact.quantize, qact.quantize_group_norm, qact.quantize_residual, qact.conv1d_int8,
+           gn.group_norm_coeffs_int8, gn.group_norm_apply_int8)
 KERNEL_WRAPPERS = {"group_norm_stats": ("group_norm_coeffs", "group_norm_stats"),
                    "group_norm_stats_int8": ("group_norm_coeffs_int8",)}
-INT8_KERNELS = ("conv1d_int8", "quantize", "group_norm_stats_int8", "group_norm_apply_int8")
+INT8_KERNELS = ("conv1d_int8", "quantize", "quantize_group_norm", "quantize_residual",
+                "group_norm_stats_int8", "group_norm_apply_int8")
 
 
 def reset_counts():
@@ -1540,8 +1636,8 @@ def _kernel_class(name: str) -> str:
         return "vq assign (CUDA)"
     if "conv1d_int8_kernel" in name:
         return "int8 conv (CUDA)"
-    if "amax_kernel" in name or "quantize_kernel" in name:
-        return "quantize (CUDA)"
+    if name.startswith(("amax_kernel", "codes_kernel")):
+        return "quantize, producer fused in (Triton)"
     lowered = name.lower()
     if any(k in lowered for k in ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad")):
         return "convolution / matmul (cuDNN, cuBLAS)"
@@ -3087,12 +3183,18 @@ def parallel_paths(workdir: str, smi: str):
     print(f"  state bytes a rank, two ranks: DP {sum(runs['gloo dp 2'][1][0]['state'].values())}"
           f", FSDP {measured} (counted: {counted[2]})")
     assert measured == [counted[2]] * 2
-    # The two ranks' sharded dcp save, read whole in this process.
+    # The two ranks' sharded dcp save, read whole in this process as every
+    # CLI reads it (ModelBase.load, no process group), and its EMA on the card.
     from vq_voice_swap_torch.convert import params_to_jax
-    from vq_voice_swap_torch.train import dcp as run_dcp
 
-    saved = params_to_jax(run_dcp.load_model(
-        os.path.join(runs["gloo fsdp 2"][0], "model.dcp"), VQVAE))
+    fsdp_dir = runs["gloo fsdp 2"][0]
+    saved = params_to_jax(VQVAE.load(os.path.join(fsdp_dir, "model.dcp"), device="cpu"))
+    ema_dirs = [f for f in os.listdir(fsdp_dir) if f.startswith("model_ema_")]
+    ema = VQVAE.load(os.path.join(fsdp_dir, ema_dirs[0]), device=torch.device("cuda:0"))
+    assert ema_dirs[0].endswith(".dcp") and all(torch.isfinite(p).all()
+                                                for p in ema.parameters())
+    print(f"  gloo fsdp 2's {ema_dirs[0]} read onto the card by VQVAE.load: every leaf finite")
+    del ema
     with np.load(os.path.join(runs["gloo dp 2"][0], "model.npz")) as dp:
         assert set(saved) == {k for k in dp.files if k.startswith(("params/", "buffers/"))}
         worst = max((np.abs(saved[k] - dp[k]).max() / max(np.abs(dp[k]).max(), 1e-30), k)
@@ -3757,13 +3859,29 @@ def sequence_parallel_paths(workdir: str, smi: str) -> dict:
 # levels (64000, 32000, 16000 samples) are int8. Per unet64 predictor call
 # (from the code, and a CPU count at base 4): the stem's output, 3 x 3
 # same-resolution and down blocks at those levels and the deeper up path's
-# 4 + 3 x 4 + 3 x 4 + 3 x 3 quantize 61 times (2 launches each); 50 int8
-# convolutions (2 a block, 3 with a skip projection); 21 GroupNorms read
-# int8 (a block's norm_in whose input is int8, and out_norm), the other 110
-# are float.
+# Launches a unet64 predictor call at T 64000 and MIN_T 16000 (levels 0-2,
+# at 64000, 32000 and 16000 samples, store int8), by site and prologue:
+# - 20 blocks write an int8 output (down: 2 and the pooling block at levels
+#   0 and 1, 2 at level 2; up: level 3's upsampling block, 3 and the
+#   upsampling block at levels 2 and 1, 3 at level 0): 20 residual-prologue
+#   quantizes, and their norm_mid 20 GroupNorm-prologue ones (float input,
+#   FiLM), each after a float statistics launch;
+# - norm_in where conv_in's input is int8 and no avg pool sits between: 17
+#   on int8 input (down 2 a level at levels 0-2; up 4 at levels 2 and 1, 3
+#   at level 0) after an int8 statistics launch, 1 on float input (level
+#   3's upsampling block, whose codes are then repeated): 18 GroupNorm-
+#   prologue quantizes;
+# - 3 quantizes with no prologue: the stem and the pooled norm_in outputs
+#   at levels 0 and 1 (the three pooling blocks' norm_in on int8 input stays
+#   the int8 statistics and apply launches, as does out_norm);
+# - 50 int8 convolutions (2 a block, 3 with a skip projection).
+# Each quantize is 2 launches. GroupNorms: 21 read int8 (17 + 3 pooling
+# blocks + out_norm; 4 of them apply), 110 read float (21 fused into a
+# quantize, 89 apply): 131 in all.
 INT8_MIN_T = 16000
-INT8_PER_PREDICTOR = dict(quantize=2 * 61, conv1d_int8=50, group_norm_coeffs_int8=21,
-                          group_norm_apply_int8=21, group_norm_coeffs=110, group_norm_apply=110)
+INT8_PER_PREDICTOR = dict(quantize=2 * 3, quantize_group_norm=2 * 38, quantize_residual=2 * 20,
+                          conv1d_int8=50, group_norm_coeffs_int8=21, group_norm_apply_int8=4,
+                          group_norm_coeffs=110, group_norm_apply=89)
 INT8_SAMPLE_STEPS = 5
 
 
@@ -3779,12 +3897,19 @@ def plain_versions():
     def conv_plain(qa, weight, bias, *, stride=1, dilation=1, dtype=None, conv=None):
         return conv_int8_plain(qa, weight, bias, stride, dilation, dtype)
 
-    saved = {k: getattr(layers, k) for k in ("quantize", "conv1d_int8", "qact_group_norm",
-                                             "group_norm")}
-    layers.quantize = qact.quantize_plain
-    layers.conv1d_int8 = conv_plain
-    layers.qact_group_norm = qact.qact_group_norm_plain
-    layers.group_norm = group_norm_plain
+    def coeffs_int8_plain(q, scale, num_groups, weight, bias, eps):
+        return gn.group_norm_coeffs_plain(gn.dequantize_codes(q, scale), num_groups, weight,
+                                          bias, eps)
+
+    plain = dict(quantize=qact.quantize_plain, conv1d_int8=conv_plain,
+                 qact_group_norm=qact.qact_group_norm_plain, group_norm=group_norm_plain,
+                 group_norm_coeffs=gn.group_norm_coeffs_plain,
+                 group_norm_coeffs_int8=coeffs_int8_plain,
+                 quantize_group_norm=qact.quantize_group_norm_plain,
+                 quantize_residual=qact.quantize_residual_plain)
+    saved = {k: getattr(layers, k) for k in plain}
+    for k, v in plain.items():
+        setattr(layers, k, v)
     try:
         yield
     finally:

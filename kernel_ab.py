@@ -3,10 +3,10 @@
 ResBlock entry points in one source tree, under two timers, so that two
 versions can be compared in one call on one card:
 
-    python3 kernel_ab.py [TREE] [--only SECTION]
+    python3 kernel_ab.py [TREE] [--only SECTION] [--reference OTHER_TREE]
 
 TREE is the root of a checkout (default: here); SECTION one of vq,
-groupnorm, backward, resblock (default: all).
+groupnorm, backward, resblock, int8 (default: all).
 
 To compare a change with its parent, unpack the parent into a directory and
 run parent, change, change, parent in one command. Each entry point is
@@ -39,7 +39,16 @@ forward's statistics where the tree saves them; else, as the older tree
 did, after a statistics launch) and the wrapper alone (statistics
 included), against ``native_group_norm_backward`` (dx; no FiLM, no GELU),
 and in a tree with ``bwd_route`` the cluster route at each cluster size
-that fits. Exits non-zero without a card.
+that fits. The int8 serving path at [16, 64, 64000]: ``conv1d_int8`` 64 ->
+64, 3 taps, dilation 2, f32 and bf16 out, and each quantize site in f32
+and bf16 (the GroupNorm apply on int8 codes, on a float input with FiLM,
+the residual add with an int8 and a float skip), by the tree's unfused
+route (its apply or the eager add, then its ``quantize``) and, where the
+tree has them, its fused entry points (``quantize_group_norm``,
+``quantize_residual``); with ``--reference``, OTHER_TREE's package is
+loaded beside it under another name, its unfused route timed too and its
+codes and scales held against the tree's fused ones on the same inputs
+(the share of codes that differ). Exits non-zero without a card.
 """
 
 import math
@@ -53,7 +62,7 @@ import torch
 ITERS = 50
 PAIR_ITERS = 10  # the pair's calls take ~1 ms and a [16, 64, 64000] output each
 BWD_ITERS = 20   # each backward call writes a [16, 32, 64000] dx
-SECTIONS = ("vq", "groupnorm", "backward", "resblock")
+SECTIONS = ("vq", "groupnorm", "backward", "resblock", "int8")
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -202,6 +211,94 @@ def time_group_norm_backward(label: str, gn, dev, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def load_tree_as(tree: str, alias: str):
+    """OTHER_TREE's package imported under ``alias`` (its modules import
+    each other relatively), its kernels built in its own tree."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(tree, "vq_voice_swap_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    importlib.import_module(alias + ".ops.cuda_build").build_all()
+    return (importlib.import_module(alias + ".ops.qact"),
+            importlib.import_module(alias + ".ops.group_norm"))
+
+
+def int8_routes(qact, gn, dtype, dev, seed: int):
+    """{site: (unfused call, fused call or None)} at [16, 64, 64000] on
+    inputs made from ``seed``; coefficients from the plain statistics, so
+    two trees see the same bits."""
+    n, c, t = 16, 64, 64000
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 3.0 * torch.randn(n, c, t, generator=gen, device=dev) + 0.5
+    scale = torch.clamp(x.abs().amax(), min=1e-12) / 127.0
+    q = torch.round(x / scale).clamp_(-127, 127).to(torch.int8)
+    codes = qact.QAct(q, scale, dtype)
+    h = (torch.randn(n, c, t, generator=gen, device=dev) + 0.3).to(dtype)
+    skip = (2.0 * torch.randn(n, c, t, generator=gen, device=dev)).to(dtype)
+    w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    b = 0.2 * torch.randn(c, generator=gen, device=dev)
+    film = tuple((0.5 * torch.randn(n, c, generator=gen, device=dev)).to(dtype) for _ in "ab")
+    ci = gn.group_norm_coeffs_plain(q.float() * scale, 32, w, b, 1e-5)
+    cf = gn.group_norm_coeffs_plain(h, 32, w, b, 1e-5, film)
+    fused_gn = getattr(qact, "quantize_group_norm", None)
+    fused_res = getattr(qact, "quantize_residual", None)
+    return {
+        "norm_in, int8 input": (
+            lambda: qact.quantize(gn.group_norm_apply_int8(q, scale, *ci, True, dtype)),
+            fused_gn and (lambda: fused_gn(codes, *ci, True))),
+        "norm_mid, FiLM": (
+            lambda: qact.quantize(gn.group_norm_apply(h, *cf, True)),
+            fused_gn and (lambda: fused_gn(h, *cf, True))),
+        "residual, int8 skip": (
+            lambda: qact.quantize(qact.dequantize(codes, dtype) + h),
+            fused_res and (lambda: fused_res(codes, h))),
+        "residual, float skip": (
+            lambda: qact.quantize(skip + h), fused_res and (lambda: fused_res(skip, h))),
+        "no prologue": (lambda: qact.quantize(h), None),
+    }
+
+
+def time_int8(label: str, dev, gen, reference) -> None:
+    from vq_voice_swap_torch.ops import group_norm as gn
+    from vq_voice_swap_torch.ops import qact
+
+    n, c, t = 16, 64, 64000
+    x = torch.randn(n, c, t, generator=gen, device=dev)
+    qa = qact.quantize(x)
+    conv = torch.nn.Conv1d(c, c, 3, padding=2, dilation=2).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        q8 = qact.QAct(qa.q, qa.scale, dtype)
+        print(f"{label} int8 conv [{n}, {c}, {t}] 64->64 d2, {str(dtype)[6:]} out: "
+              f"{timings(lambda: qact.conv1d_int8(q8, conv.weight, conv.bias, dilation=2, conv=conv), 20)}")
+    del x, qa
+    for dtype in (torch.float32, torch.bfloat16):
+        mine = int8_routes(qact, gn, dtype, dev, 16)
+        theirs = int8_routes(*reference, dtype, dev, 16) if reference else {}
+        for site, (unfused, fused) in mine.items():
+            name = f"{label} quantize {site} [{n}, {c}, {t}] {str(dtype)[6:]}"
+            print(f"{name} unfused: {timings(unfused, 20)}")
+            if fused is not None:
+                print(f"{name} fused: {timings(fused, 20)}")
+            if site in theirs:
+                old = theirs[site][0]
+                print(f"{name} the reference tree's unfused route: {timings(old, 20)}")
+                got, want = (fused or unfused)(), old()
+                torch.cuda.synchronize()
+                gap = (got.q != want.q).float().mean().item()
+                print(f"{name}: {'fused' if fused else 'unfused'} against the reference "
+                      f"tree's unfused route: scale bits equal "
+                      f"{torch.equal(got.scale, want.scale)} ({got.scale.item():.9g} / "
+                      f"{want.scale.item():.9g}), codes that differ {gap:.6g}")
+                del got, want
+        del mine, theirs
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -210,6 +307,11 @@ def main(argv) -> int:
     if "--only" in argv:
         i = argv.index("--only")
         only = tuple(argv[i + 1].split(","))
+        argv = argv[:i] + argv[i + 2:]
+    reference = None
+    if "--reference" in argv:
+        i = argv.index("--reference")
+        reference = os.path.abspath(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, tree)
@@ -268,6 +370,11 @@ def main(argv) -> int:
         time_group_norm_backward(label, gn, dev, gen)
     if "resblock" in only:
         time_fused_resblock(label, dev, gen)
+    if "int8" in only:
+        ref = load_tree_as(reference, "reference_port") if reference else None
+        if ref is not None:
+            print(f"{label} int8: reference tree {reference}")
+        time_int8(label, dev, gen, ref)
     return 0
 
 

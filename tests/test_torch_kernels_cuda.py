@@ -978,6 +978,12 @@ def test_quantize_kernel_is_bit_equal_to_plain(cuda_gen, dtype, shape, kind):
     (1, 8, 12, 1000, 3, 32, False, True),
     (3, 40, 70, 333, 3, 5, True, False),
     (1, 256, 128, 515, 3, 1, True, True),
+    # Weights too large to stay in shared memory: each unit stages its slice.
+    (2, 1024, 128, 512, 3, 2, False, False),
+    (1, 1000, 64, 300, 3, 1, True, True),
+    # Windows of more than 16 chunks of 16 positions (dilation 72).
+    (1, 64, 64, 2048, 3, 72, False, False),
+    (1, 8, 12, 1000, 3, 72, False, True),
 ])
 def test_conv1d_int8_kernel_is_bit_equal_to_plain(cuda_gen, out_dtype, n, cin, cout, t, taps,
                                                   dilation, per_channel, bias):
@@ -1050,3 +1056,88 @@ def test_int8_group_norm_kernels_match_plain(cuda_gen, dtype, shape, groups, per
                                                            else 2e-2)
     assert gn.group_norm_coeffs_int8.launches == launches[0] + 2
     assert gn.group_norm_apply_int8.launches == launches[1] + 2
+
+
+def _fused_site(qact, site, dtype, shape, gen):
+    """(fused call, the unfused card route's call, plain version, wrapper) of
+    one quantize site on seeded inputs."""
+    n, c, t = shape
+    x = 3.0 * torch.randn(shape, generator=gen, device="cuda") + 0.5
+    if site.endswith("per_channel"):
+        qa = qact.qact_concat(qact.quantize(x[:, :c // 2].contiguous()),
+                              qact.quantize(9.0 * x[:, c // 2:].contiguous()))
+    else:
+        qa = qact.quantize(x)
+    qa = qact.QAct(qa.q, qa.scale, dtype)
+    h = (torch.randn(shape, generator=gen, device="cuda") + 0.3).to(dtype)
+    skip = (2.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    groups = 32 if c % 32 == 0 else 4
+    w = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    b = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    film = tuple((0.5 * torch.randn(n, c, generator=gen, device="cuda")).to(dtype)
+                 for _ in "ab")
+    if site.startswith("norm_int8"):
+        co = gn.group_norm_coeffs_int8(qa.q, qa.scale, groups, w, b, 1e-5)
+        return (lambda: qact.quantize_group_norm(qa, *co, True),
+                lambda: qact.quantize(gn.group_norm_apply_int8(qa.q, qa.scale, *co, True,
+                                                               dtype)),
+                lambda: qact.quantize_group_norm_plain(qa, *co, True), qact.quantize_group_norm)
+    if site == "norm_float_film":
+        co = gn.group_norm_coeffs(h, groups, w, b, 1e-5, film)
+        return (lambda: qact.quantize_group_norm(h, *co, True),
+                lambda: qact.quantize(gn.group_norm_apply(h, *co, True)),
+                lambda: qact.quantize_group_norm_plain(h, *co, True), qact.quantize_group_norm)
+    if site == "norm_float_no_gelu":
+        co = gn.group_norm_coeffs(h, groups, w, b, 1e-5)
+        return (lambda: qact.quantize_group_norm(h, *co, False),
+                lambda: qact.quantize(gn.group_norm_apply(h, *co, False)),
+                lambda: qact.quantize_group_norm_plain(h, *co, False), qact.quantize_group_norm)
+    if site.startswith("residual_int8"):
+        return (lambda: qact.quantize_residual(qa, h),
+                lambda: qact.quantize(qact.dequantize(qa, dtype) + h),
+                lambda: qact.quantize_residual_plain(qa, h), qact.quantize_residual)
+    return (lambda: qact.quantize_residual(skip, h), lambda: qact.quantize(skip + h),
+            lambda: qact.quantize_residual_plain(skip, h), qact.quantize_residual)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,site", [
+    ((16, 64, 64000), "norm_int8"), ((16, 64, 64000), "norm_float_film"),
+    ((16, 64, 64000), "residual_int8"), ((16, 64, 64000), "residual_float"),
+    ((2, 128, 16000), "norm_int8_per_channel"), ((2, 128, 16000), "residual_int8_per_channel"),
+    ((3, 20, 333), "norm_int8_per_channel"), ((3, 20, 333), "norm_float_no_gelu"),
+    ((3, 20, 333), "residual_int8_per_channel"), ((1, 8, 1001), "residual_float")])
+def test_fused_quantize_matches_the_unfused_route(cuda_gen, dtype, shape, site):
+    """The quantize with its producer fused in against the unfused card
+    route (the Triton apply or the eager add, then quantize): codes and
+    scale bit for bit, two launches a call. Against its plain version
+    (torch's GELU, which rounds otherwise than the kernels' erf, and
+    unfused roundings): the scale within 1e-6, at most 1e-5 of the codes
+    differing, by one step (the shares are printed)."""
+    qact = _qact()
+    fused, unfused, plain, wrapper = _fused_site(qact, site, dtype, shape, cuda_gen)
+    launches = wrapper.launches
+    got = fused()
+    assert wrapper.launches == launches + 2
+    route, want = unfused(), plain()
+    torch.cuda.synchronize()
+    for name, other in (("unfused route", route), ("plain", want)):
+        print(f"{site} {shape} {dtype} against the {name}: codes that differ "
+              f"{(got.q != other.q).float().mean().item():.3g}, scale bits equal "
+              f"{torch.equal(got.scale, other.scale)}")
+    assert got.dtype == dtype and got.scale.shape == () and got.q.shape == shape
+    assert torch.equal(got.scale, route.scale) and torch.equal(got.q, route.q)
+    torch.testing.assert_close(got.scale, want.scale, rtol=1e-6, atol=0)
+    step = (got.q.int() - want.q.int()).abs()
+    assert step.max().item() <= 1 and (step > 0).float().mean().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_then_upsample_is_upsample_then_quantize_on_card(cuda_gen, dtype):
+    qact = _qact()
+    x = torch.randn(4, 64, 8000, generator=cuda_gen, device="cuda").to(dtype)
+    up = qact.qact_upsample(qact.quantize(x), 2)
+    ref = qact.quantize(torch.repeat_interleave(x, 2, dim=-1))
+    assert torch.equal(up.q, ref.q) and torch.equal(up.scale, ref.scale)

@@ -48,6 +48,7 @@ from vq_voice_swap_torch.diffusion_model import DiffusionModel
 from vq_voice_swap_torch.models import layers as tl
 from vq_voice_swap_torch.models.registry import make_encoder, make_predictor
 from vq_voice_swap_torch.models.unet import UNetEncoder, UNetPredictor, _concat
+from vq_voice_swap_torch.ops import group_norm as gn
 from vq_voice_swap_torch.ops import qact
 from vq_voice_swap_torch.parallel.sequence import create_seq_mesh, sequence_parallel
 from vq_voice_swap_torch.vq_vae import VQVAE
@@ -218,6 +219,144 @@ def test_resblock_int8_codes(in_ch, kwargs, quantized_input):
     np.testing.assert_allclose(got.scale.numpy(), np.asarray(want.scale), rtol=1e-6)
     diff = np.abs(got.q.numpy().astype(int) - _jax_codes(want).astype(int))
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (diff.max(), (diff > 0).mean())
+
+
+# ------------------------------------------- the fused quantize entry points
+
+
+def _codes_input(x: torch.Tensor, per_channel: bool, dtype) -> qact.QAct:
+    """x quantized per tensor, or its channel halves apart and concatenated
+    (a per-channel scale, as the up path's concat makes one)."""
+    if per_channel:
+        c = x.shape[1] // 2
+        qa = qact.qact_concat(qact.quantize(x[:, :c].contiguous()),
+                              qact.quantize(9.0 * x[:, c:].contiguous()))
+    else:
+        qa = qact.quantize(x)
+    return qact.QAct(qa.q, qa.scale, dtype)
+
+
+def _same_codes(got: qact.QAct, want: qact.QAct) -> None:
+    assert got.dtype == want.dtype
+    assert got.scale.numpy().tobytes() == want.scale.numpy().tobytes()
+    np.testing.assert_array_equal(got.q.numpy(), want.q.numpy())
+
+
+@pytest.mark.parametrize("use_gelu", [True, False], ids=["gelu", "no_gelu"])
+@pytest.mark.parametrize("source", ["float", "int8", "int8_per_channel"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quantize_group_norm_is_apply_then_quantize(dtype, source, use_gelu):
+    """The GroupNorm-prologue quantize (its plain version on the CPU) has
+    the codes and scale of the apply (float, or int8 mode) then quantize."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy((3.0 * rng.randn(2, 8, 40) + 0.5).astype(np.float32))
+    w = torch.from_numpy(np.linspace(0.5, 1.5, 8, dtype=np.float32))
+    b = torch.from_numpy(np.linspace(-0.2, 0.2, 8, dtype=np.float32))
+    film = tuple(torch.from_numpy((0.5 * rng.randn(2, 8)).astype(np.float32)).to(dtype)
+                 for _ in "ab")
+    if source == "float":
+        xin = x.to(dtype)
+        coeffs = gn.group_norm_coeffs(xin, 4, w, b, 1e-5, film)
+        want = qact.quantize(gn.group_norm_apply(xin, *coeffs, use_gelu))
+    else:
+        xin = _codes_input(x, source.endswith("per_channel"), dtype)
+        coeffs = gn.group_norm_coeffs_int8(xin.q, xin.scale, 4, w, b, 1e-5)
+        want = qact.quantize(gn.group_norm_apply_int8(xin.q, xin.scale, *coeffs, use_gelu,
+                                                      dtype))
+    _same_codes(qact.quantize_group_norm(xin, *coeffs, use_gelu), want)
+    _same_codes(qact.quantize_group_norm_plain(xin, *coeffs, use_gelu), want)
+
+
+@pytest.mark.parametrize("skip_kind", ["float", "int8", "int8_per_channel"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quantize_residual_is_add_then_quantize(dtype, skip_kind):
+    """The residual-prologue quantize has the codes and scale of the eager
+    add in the dtype (an int8 skip dequantized to it first) then quantize."""
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy((2.0 * rng.randn(2, 8, 40)).astype(np.float32))
+    h = torch.from_numpy(rng.randn(2, 8, 40).astype(np.float32)).to(dtype)
+    if skip_kind == "float":
+        skip = x.to(dtype)
+        want = qact.quantize(skip + h)
+    else:
+        skip = _codes_input(x, skip_kind.endswith("per_channel"), dtype)
+        want = qact.quantize(qact.dequantize(skip, dtype) + h)
+    _same_codes(qact.quantize_residual(skip, h), want)
+    _same_codes(qact.quantize_residual_plain(skip, h), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quantize_then_upsample_is_upsample_then_quantize(dtype):
+    """Nearest repetition commutes with the quantize (same amax, codes
+    elementwise), so the up path quantizes norm_in's output before the
+    upsample, here and after the GroupNorm prologue."""
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy((3.0 * rng.randn(2, 8, 33)).astype(np.float32)).to(dtype)
+    _same_codes(qact.qact_upsample(qact.quantize(x), 2),
+                qact.quantize(tl.nearest_upsample_1d(x, 2)))
+    w, b = torch.ones(8), torch.zeros(8)
+    coeffs = gn.group_norm_coeffs(x, 4, w, b, 1e-5)
+    _same_codes(qact.qact_upsample(qact.quantize_group_norm(x, *coeffs, True), 2),
+                qact.quantize(tl.nearest_upsample_1d(gn.group_norm_apply(x, *coeffs, True),
+                                                     2)))
+
+
+def _unfused_block(block: tl.ResBlock, x, emb):
+    """The int8 ResBlock as it was composed before the fused quantizes:
+    every GroupNorm applied and every sum written, then quantized."""
+    def mq(h):
+        return tl.maybe_quantize(h, block.act_int8_min_t)
+
+    h = block.conv_in(mq(block._resize(block.norm_in(x))))
+    film = None if emb is None else tuple(
+        tl.linear(tl.gelu(emb), block.cond_proj).chunk(2, dim=-1))
+    h = block.conv_out(mq(block.norm_mid(h, film)))
+    return mq(block._skip(x) + h)
+
+
+@pytest.mark.parametrize("kwargs,quantized_input,min_t", [
+    (dict(out_channels=12, emb=True), True, 1),
+    (dict(out_channels=12, emb=True), False, 1),
+    (dict(scale_factor=2.0, emb=True), True, 1),
+    (dict(scale_factor=2.0), False, 80),
+    (dict(scale_factor=0.5, emb=True), True, 1),
+    (dict(scale_factor=0.5), True, 40),
+], ids=["proj_int8", "proj_float", "up_int8", "up_float_to_int8", "down_int8",
+        "down_int8_to_float"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_resblock_int8_routes_are_the_unfused_composition(dtype, kwargs, quantized_input,
+                                                          min_t):
+    """The ResBlock's fused int8 routes give the unfused composition's
+    output bit for bit, at every site (and where the output stays float)."""
+    rng = np.random.RandomState(14)
+    block = tl.ResBlock(8, kwargs.get("out_channels"), 16 if kwargs.get("emb") else None,
+                        kwargs.get("scale_factor", 1.0), act_int8_min_t=min_t)
+    _seeded_tree(block, 5)
+    x = torch.from_numpy(rng.randn(2, 8, 64).astype(np.float32)).to(dtype)
+    emb = torch.from_numpy(rng.randn(2, 16).astype(np.float32)).to(dtype) \
+        if kwargs.get("emb") else None
+    if quantized_input:
+        x = qact.quantize(x)
+    with torch.no_grad():
+        got, want = block(x, emb), _unfused_block(block, x, emb)
+    assert isinstance(got, qact.QAct) == isinstance(want, qact.QAct)
+    if isinstance(want, qact.QAct):
+        _same_codes(got, want)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_fused_quantize_refusals():
+    h = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError, match="one dtype"):
+        qact.quantize_residual(h.to(torch.bfloat16), h)
+    with pytest.raises(ValueError, match="one dtype"):
+        qact.quantize_residual(torch.zeros(1, 4, 9), h)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qact.quantize_residual(h.double(), h.double())
+    with pytest.raises(ValueError, match="mean must be float32"):
+        qact.quantize_group_norm(h, torch.zeros(1, 3), torch.zeros(1, 4), torch.zeros(1, 4),
+                                 False)
 
 
 # ----------------------------------------------------------------- UNets

@@ -3,7 +3,10 @@ JAX package's ``.npz`` format (``ModelBase.load`` builds whatever class the
 manifest names), and the serving overrides ``dtype``, ``fuse_levels`` and
 ``act_int8_min_t``.
 ``load`` also takes a released reference ``.pt`` checkpoint, converted on
-the fly (``convert/torch_import.py``), as the JAX package's does.
+the fly (``convert/torch_import.py``), as the JAX package's does, and a
+``--checkpoint-format dcp`` run's ``model.dcp`` or ``model_ema_<rate>.dcp``
+directory (``checkpoint.load_dcp_checkpoint``, with the ``.new`` fallback),
+as the JAX package's reads an Orbax directory.
 
 In the JAX package a model is a config object and its variables travel
 separately; here a model is an ``nn.Module`` that owns its weights, so
@@ -11,11 +14,12 @@ separately; here a model is an ``nn.Module`` that owns its weights, so
 """
 
 import importlib
+import os
 from typing import Any, Dict, Optional, Tuple, Type
 
 from torch import nn
 
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import load_checkpoint, load_dcp_checkpoint, save_checkpoint
 from .convert import params_from_jax, params_to_jax
 from .convert.torch_import import looks_like_torch_file, state_dict_from_torch_checkpoint
 from .util import resolve_device
@@ -37,9 +41,11 @@ def _ensure_registered() -> None:
 
 
 def _load_any_checkpoint(path: str) -> Tuple[str, Dict[str, Any], Dict[str, Any]]:
-    """(class name, kwargs, state_dict) of an npz checkpoint or a reference
-    ``.pt``. A real torch file that fails to convert shows the conversion
-    error, not the npz reader's."""
+    """(class name, kwargs, state_dict) of an npz checkpoint, a reference
+    ``.pt`` or a dcp directory. A real torch file that fails to convert
+    shows the conversion error, not the npz reader's."""
+    if os.path.isdir(path) or os.path.isdir(path + ".new"):
+        return load_dcp_checkpoint(path)
     try:
         class_name, kwargs, flat = load_checkpoint(path)
         return class_name, kwargs, params_from_jax(flat)

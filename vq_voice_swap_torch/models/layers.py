@@ -28,8 +28,10 @@ option): a ResBlock quantizes (``ops/qact.py``) the inputs of its
 convolutions and its output where their time axis is at least M long, as
 the JAX package's ``_maybe_quantize`` does; ``conv1d``/``Conv1d`` and
 ``GroupNorm`` take such a ``QAct`` and run the int8 convolution and the
-int8 GroupNorm kernels, pooling and upsampling stay int8, and the skip is
-dequantized before the residual add. The int8 convolution goes through
+int8 GroupNorm kernels, pooling and upsampling stay int8. A GroupNorm
+output or a residual sum that is stored as int8 is never written in
+float: the quantize kernels recompute it from its inputs
+(``GroupNorm.quantized``, ``quantize_residual``). The int8 convolution goes through
 the same column-parallel funnel under tensor parallelism; sequence
 parallelism has no int8 path (the models refuse it).
 """
@@ -46,9 +48,9 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from ..ops.group_norm import group_norm
+from ..ops.group_norm import group_norm, group_norm_coeffs, group_norm_coeffs_int8
 from ..ops.qact import (QAct, conv1d_int8, dequantize, qact_avg_pool, qact_group_norm,
-                        qact_upsample, quantize)
+                        qact_upsample, quantize, quantize_group_norm, quantize_residual)
 from ..parallel.sequence import (active_mesh, seq_sharded_conv1d, seq_sharded_group_norm,
                                  seq_sharded_resize)
 from ..parallel.tensor import column_parallel, cut_axis, whole
@@ -203,6 +205,25 @@ class GroupNorm(nn.Module):
             self.norm.eps, self.use_gelu, film,
         )
 
+    def quantized(
+        self,
+        x: Union[torch.Tensor, QAct],
+        film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> QAct:
+        """The forward's output stored as int8: the statistics kernel, then
+        ``quantize_group_norm``, whose passes recompute the apply, so the
+        float output is never written. The int8 serving path only (no
+        sequence parallelism)."""
+        w, b = whole(self.norm, "weight"), whole(self.norm, "bias")
+        groups, eps = self.norm.num_groups, self.norm.eps
+        if isinstance(x, QAct):
+            if film is not None:
+                raise ValueError("the int8 GroupNorm takes no FiLM")
+            coeffs = group_norm_coeffs_int8(x.q, x.scale, groups, w, b, eps)
+        else:
+            coeffs = group_norm_coeffs(x, groups, w, b, eps, film)
+        return quantize_group_norm(x, *coeffs, self.use_gelu)
+
 
 def sinusoidal_time_features(ts: torch.Tensor, channels: int) -> torch.Tensor:
     """[N] ts in [0, 1] -> [N, channels] cos/sin features with frequencies
@@ -349,7 +370,12 @@ class ResBlock(nn.Module):
     axis is at least that long (JAX ``ResBlock._maybe_quantize``); the
     quantization of ``conv_out``'s input follows ``norm_mid``'s apply, which
     carries the FiLM and GELU. The block then takes a ``QAct`` input too. A
-    serving-only option: a forward with dropout raises.
+    serving-only option: a forward with dropout raises. A quantized value
+    whose producer is a GroupNorm (``norm_in`` with no avg pool after it,
+    ``norm_mid``) or the residual add is quantized by kernels that
+    recompute it, so it is never written in float; after a nearest
+    upsample, ``norm_in``'s output is quantized first and its codes are
+    repeated (the amax and the codes commute with the repetition).
 
     ``remat`` ("full", "convs" or None, see ``remat_policy``) applies when
     grad is enabled. "convs" checkpoints the main path alone: in the
@@ -426,25 +452,45 @@ class ResBlock(nn.Module):
                        preserve_rng_state=False, context_fn=_save_first_conv)
         return self._skip(x) + h
 
+    def _int8(self, t: int) -> bool:
+        """Whether an activation of length t is stored as int8."""
+        return bool(self.act_int8_min_t) and t >= self.act_int8_min_t
+
     def _block(self, x, emb, keep, keep_prob):
         h = self._main(x, emb, keep, keep_prob)
-        return maybe_quantize(self._skip(x) + h, self.act_int8_min_t)
+        if self._int8(h.shape[-1]):
+            return quantize_residual(self._skip_input(x), h)
+        return self._skip(x) + h
 
     def _main(self, x, emb, keep, keep_prob):
-        h = self.conv_in(maybe_quantize(self._resize(self.norm_in(x)), self.act_int8_min_t))
+        t = (x.q if isinstance(x, QAct) else x).shape[-1]
+        if self._int8(self.out_length(t)) and self.scale_factor >= 1.0:
+            h = self._resize(self.norm_in.quantized(x))
+        else:
+            h = maybe_quantize(self._resize(self.norm_in(x)), self.act_int8_min_t)
+        h = self.conv_in(h)
         film = None
         if emb is not None:
             cond_a, cond_b = linear(gelu(emb), self.cond_proj).chunk(2, dim=-1)
             film = (cond_a, cond_b)
+        if self._int8(h.shape[-1]):  # no dropout: the int8 path is serving-only
+            return self.conv_out(self.norm_mid.quantized(h, film))
         h = self.norm_mid(h, film)
         if keep is not None:
             h = apply_keep_mask(h, keep, keep_prob)
-        return self.conv_out(maybe_quantize(h, self.act_int8_min_t))
+        return self.conv_out(h)
 
-    def _skip(self, x):
+    def _skip_input(self, x):
+        """The skip path's value before the residual add: x resized, and
+        projected where the channels change (an int8 x stays int8 unless
+        projected)."""
         skip = self._resize(x)
         if self.skip_proj is not None:
             skip = self.skip_proj(skip)
+        return skip
+
+    def _skip(self, x):
+        skip = self._skip_input(x)
         if isinstance(skip, QAct):
             skip = dequantize(skip, skip.dtype)
         return skip

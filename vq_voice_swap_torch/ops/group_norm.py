@@ -57,6 +57,7 @@ CUDA tensors, with no fallback between them; each counts its launches.
 
 import ctypes
 import functools
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -89,6 +90,10 @@ __all__ = [
     "group_norm_apply_plain",
     "merge_partials",
     "fold_affine",
+    "apply_helpers",
+    "check_codes",
+    "check_apply_coeffs",
+    "sm_count",
 ]
 
 APPLY_BLOCK = 4096  # largest T-block of one apply program
@@ -168,7 +173,7 @@ def _check_coeffs(x, weight, bias, film: Film, out) -> None:
                              f"{tuple(out.shape)} strides {out.stride()}")
 
 
-def _check_codes(q: torch.Tensor, scale: torch.Tensor) -> None:
+def check_codes(q: torch.Tensor, scale: torch.Tensor) -> None:
     if q.ndim != 3 or q.dtype != torch.int8 or not q.is_contiguous():
         raise ValueError(f"expected contiguous int8 codes [N, C, T], got {q.dtype} "
                          f"{tuple(q.shape)}")
@@ -385,20 +390,23 @@ def group_norm_coeffs_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _apply_kernel():
-    """Define the Triton apply kernel at first launch (triton is imported
-    here, never at module import: the CPU has no triton)."""
-    global tl  # the kernel resolves `tl` from this module's globals
+def apply_helpers() -> SimpleNamespace:
+    """The apply kernel's body as ``@triton.jit`` helpers, defined at first
+    use (triton is imported here, never at module import: the CPU has no
+    triton): ``triton``, ``tl``, ``affine`` (float32 (x - mean) * a + b of
+    one block of an (n, c) row), ``gelu`` (exact erf GELU) and ``values``
+    (the two composed). The apply kernel and ``ops/qact.py``'s quantize
+    kernels take them from here, so a quantized GroupNorm output has the
+    apply kernel's bits. The kernels reach them as closure variables."""
     import triton
     import triton.language as tl
 
     @triton.jit
-    def apply_kernel(x_ptr, mean_ptr, a_ptr, b_ptr, y_ptr, T, s_ptr, C, S_STRIDE,
-                     GELU: tl.constexpr, INT8: tl.constexpr, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-        mask = idx < T
-        offs = row.to(tl.int64) * T + idx
+    def affine(x_ptr, offs, mask, row, mean_ptr, a_ptr, b_ptr, s_ptr, C, S_STRIDE,
+               INT8: tl.constexpr):
+        """Float32 (x - mean) * a + b of one block of row ``row`` (n * C +
+        c) at ``offs``; int8 codes times the row's channel scale where
+        INT8."""
         mean = tl.load(mean_ptr + row)
         a = tl.load(a_ptr + row)
         b = tl.load(b_ptr + row)
@@ -407,9 +415,43 @@ def _apply_kernel():
             x = x * tl.load(s_ptr + (row % C) * S_STRIDE)
         else:
             x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        y = (x - mean) * a + b
+        return (x - mean) * a + b
+
+    @triton.jit
+    def gelu(y):
+        """Exact (erf) GELU, (0.5 y) (1 + erf(y / sqrt 2)): at most y where
+        y >= 0 (erf <= 1), and above -0.17 where y < 0."""
+        return 0.5 * y * (1.0 + tl.math.erf(y * 0.7071067811865476))
+
+    # Unannotated: Triton reads a callee's annotations in the names it
+    # captures, and this body names no ``tl``; the callers' constexpr GELU
+    # and INT8 specialise it all the same.
+    @triton.jit
+    def values(x_ptr, offs, mask, row, mean_ptr, a_ptr, b_ptr, s_ptr, C, S_STRIDE, GELU, INT8):
+        """``affine``, then ``gelu`` where GELU."""
+        y = affine(x_ptr, offs, mask, row, mean_ptr, a_ptr, b_ptr, s_ptr, C, S_STRIDE, INT8)
         if GELU:
-            y = 0.5 * y * (1.0 + tl.math.erf(y * 0.7071067811865476))
+            y = gelu(y)
+        return y
+
+    return SimpleNamespace(triton=triton, tl=tl, affine=affine, gelu=gelu, values=values)
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_kernel():
+    """Define the Triton apply kernel at first launch, on ``apply_helpers``."""
+    helpers = apply_helpers()
+    triton, tl, values = helpers.triton, helpers.tl, helpers.values
+
+    @triton.jit
+    def apply_kernel(x_ptr, mean_ptr, a_ptr, b_ptr, y_ptr, T, s_ptr, C, S_STRIDE,
+                     GELU: tl.constexpr, INT8: tl.constexpr, BLOCK: tl.constexpr):
+        row = tl.program_id(0)
+        idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
+        mask = idx < T
+        offs = row.to(tl.int64) * T + idx
+        y = values(x_ptr, offs, mask, row, mean_ptr, a_ptr, b_ptr, s_ptr, C, S_STRIDE, GELU,
+                   INT8)
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
     return triton, apply_kernel
@@ -468,7 +510,7 @@ def _bwd_library():
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -483,7 +525,7 @@ def _launch_stats(x, num_groups, out_mean, out_a, out_b, out_ld,
     ``scale`` marks x as int8 codes."""
     n, c, t = x.shape
     spans, span = n * num_groups, (c // num_groups) * t
-    target = _sm_count(x.device) * STATS_BLOCKS_PER_SM
+    target = sm_count(x.device) * STATS_BLOCKS_PER_SM
     slices = max(1, min(target // max(spans, 1), -(-span // STATS_TILE), STATS_MAX_SLICES))
     chunk = -(-span // slices)
     step = 16 if scale is not None else 8  # a slice starts on a 16-byte load
@@ -574,7 +616,7 @@ def group_norm_apply(
     """y = (x - mean) * a + b per (n, channel) row of [N, C, T], optional
     exact GELU, in x's dtype. mean/a/b: float32 contiguous [N, C]."""
     _check_x(x)
-    _check_apply_coeffs(x, mean, a, b)
+    check_apply_coeffs(x, mean, a, b)
     if x.device.type == "cpu":
         return group_norm_apply_plain(x, mean, a, b, use_gelu)
     y = torch.empty_like(x)
@@ -583,7 +625,7 @@ def group_norm_apply(
     return y
 
 
-def _check_apply_coeffs(x, mean, a, b) -> None:
+def check_apply_coeffs(x, mean, a, b) -> None:
     for name, v in (("mean", mean), ("a", a), ("b", b)):
         if v.shape != x.shape[:2] or v.dtype != torch.float32:
             raise ValueError(
@@ -619,7 +661,7 @@ def group_norm_coeffs_int8(
     codes q [N, C, T] and a float32 scale () or (C,): one launch of the
     statistics kernel's int8 mode on the card, the codes dequantized in
     registers."""
-    _check_codes(q, scale)
+    check_codes(q, scale)
     _check_groups(q, num_groups)
     _check_coeffs(q, weight, bias, None, None)
     if q.device.type == "cpu":
@@ -644,8 +686,8 @@ def group_norm_apply_int8(
     """``group_norm_apply`` of the values q * scale of int8 codes, the
     output in ``dtype`` (float32 or bfloat16): one launch of the Triton
     apply kernel's int8 mode on the card."""
-    _check_codes(q, scale)
-    _check_apply_coeffs(q, mean, a, b)
+    check_codes(q, scale)
+    check_apply_coeffs(q, mean, a, b)
     if dtype not in _DTYPES:
         raise ValueError(f"GroupNorm writes float32 or bfloat16, not {dtype}")
     if q.device.type == "cpu":
@@ -841,7 +883,7 @@ def bwd_slices(x: torch.Tensor, sms: Optional[int] = None) -> Tuple[int, int]:
     last block of a row merges the slices' partial sums in slice order."""
     n, c, t = x.shape
     rows = n * c
-    sms = _sm_count(x.device) if sms is None else sms
+    sms = sm_count(x.device) if sms is None else sms
     target = sms * BWD_BLOCKS_PER_SM
     slices = max(1, min(target // max(rows, 1), -(-t // BWD_TILE), BWD_MAX_SLICES))
     return slices, _round8(-(-t // slices))
@@ -861,7 +903,7 @@ def bwd_route(x: torch.Tensor, num_groups: int, sms: Optional[int] = None) -> Bw
     n, c, t = x.shape
     cpg = c // num_groups
     span, spans = cpg * t, n * num_groups
-    sms = _sm_count(x.device) if sms is None else sms
+    sms = sm_count(x.device) if sms is None else sms
     chosen = None
     k = 1
     while k <= BWD_CLUSTER_MAX:

@@ -48,9 +48,11 @@ or resumed state is broadcast at the start; only rank 0 logs, writes
 ``run_info_*.json`` and saves. ``--fsdp`` stores the parameters, EMAs and
 AdamW moments sharded over the ranks (FSDP2); its steps run eagerly, also
 in --steps-per-dispatch windows. ``--checkpoint-format dcp`` writes
-``model.dcp/`` and ``opt.dcp/`` with ``torch.distributed.checkpoint``,
-every rank its own shards (``train/dcp.py``); npz saves gather the state
-first. ``--tensor-parallel T`` lays the N ranks out as N / T data rows of
+``model.dcp/``, ``model_ema_<rate>.dcp/`` and ``opt.dcp/`` with
+``torch.distributed.checkpoint``, every rank its own shards
+(``train/dcp.py``), synchronously (``--async-save`` warns and is ignored
+there); ``ModelBase.load`` and so every CLI reads ``model.dcp`` and the
+EMA directories; npz saves gather the state first. ``--tensor-parallel T`` lays the N ranks out as N / T data rows of
 T model columns (``parallel.dist.init_grid``): each data row reads its
 shard of every epoch at ``--batch-size``, and its T ranks hold the
 parameters, EMAs and AdamW moments cut along their output features
@@ -166,6 +168,10 @@ class TrainLoop(ABC):
                 "runs write them), or warm-start from an npz model with --pretrained-path "
                 "into a fresh --output-dir."
             )
+        if args.async_save and self.dcp and self.primary:
+            print("warning: --async-save is ignored with --checkpoint-format dcp (the "
+                  "sharded save is collective, so it runs in the train loop's thread and "
+                  "the loop waits for it)", file=sys.stderr)
         self.rng_seed = args.seed
         self.steps_per_dispatch = max(1, args.steps_per_dispatch or 1)
         self.data_loader, self.num_labels = create_data_loader(
@@ -183,7 +189,7 @@ class TrainLoop(ABC):
             lr_anneal_steps=args.lr_anneal_steps, grad_clip=args.grad_clip)
         names = {id(p): n for n, p in self.model.named_parameters()}
         self.opt_names = [names[id(p)] for p in self.optimizer.params]
-        if self.dcp and os.path.exists(self.opt_path()):
+        if self.dcp and dcp.exists(self.opt_path()):
             print("loading optimizer state from checkpoint...")
             dcp.load_optimizer(self.opt_path(), self.optimizer, self.opt_names)
         elif os.path.exists(self.opt_path()):
@@ -447,20 +453,16 @@ class TrainLoop(ABC):
         return self.path("model.dcp" if self.dcp else "model.npz")
 
     def ema_path(self, rate: float) -> str:
-        return self.path(f"model_ema_{rate}.npz")
+        return self.path(f"model_ema_{rate}.{'dcp' if self.dcp else 'npz'}")
 
     def opt_path(self) -> str:
         return self.path("opt.dcp" if self.dcp else "opt.pt")
 
     def create_model(self) -> Tuple[ModelBase, bool]:
-        if os.path.exists(self.checkpoint_path()):
+        saved = self.checkpoint_path()
+        if dcp.exists(saved) if self.dcp else os.path.exists(saved):
             print("loading from checkpoint...")
-            if self.dcp:
-                model = dcp.load_model(self.checkpoint_path(), self.model_class())
-                model = model.to(self.device).eval()
-            else:
-                model = self.model_class().load(self.checkpoint_path(), device=self.device,
-                                                frozen=False)
+            model = self.model_class().load(saved, device=self.device, frozen=False)
             resume = True
         else:
             print("creating new model")
@@ -493,8 +495,9 @@ class TrainLoop(ABC):
                 ema.model.load_state_dict(
                     ModelBase.load(self.ema_path(rate), device=self.device).state_dict())
             emas.append(ema)
-        if self.dcp and os.path.exists(self.checkpoint_path()):
-            for rate in dcp.load_emas(self.checkpoint_path(), emas):
+        if self.dcp:
+            paths = [self.ema_path(ema.rate) for ema in emas]
+            for rate in dcp.load_emas(self.checkpoint_path(), paths, emas):
                 print(f"loading EMA {rate} from checkpoint...")
         return emas
 
@@ -507,8 +510,9 @@ class TrainLoop(ABC):
         thread) and rank 0 writes; ``dcp`` saves are collective and
         synchronous."""
         if self.dcp:
-            dcp.save_run(self.checkpoint_path(), self.opt_path(), self.model, self.emas,
-                         self.optimizer, self.opt_names, self.tp_axes)
+            dcp.save_run(self.checkpoint_path(), [self.ema_path(e.rate) for e in self.emas],
+                         self.opt_path(), self.model, self.emas, self.optimizer,
+                         self.opt_names, self.tp_axes)
             self.logger.mark_save()
             return
         if not self.primary:
