@@ -75,8 +75,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    float skip), f32 and bf16 at [16, 64, 64000], against the unfused card
    route (the Triton apply or the eager add, then quantize) and their
    plain versions, codes and scale bit for bit; quantize-then-upsample
-   against upsample-then-quantize; the GroupNorm statistics and apply
-   kernels' int8 modes with a per-tensor and a per-channel scale (1e-4);
+   against upsample-then-quantize; the int8 GroupNorm statistics kernel
+   (exact integer sums) against its plain version
+   (``group_norm_coeffs_int8_plain``) at [16, 64, 64000] with a per-tensor
+   scale (group mean and var bit for bit) and [16, 128, 64000] with a
+   per-channel one (within one float32 ulp), a and b within 1e-6, both
+   timed beside their bounds, and the apply kernel's int8 mode (1e-4);
    each timed beside its bound and plain version (a fused quantize also
    beside the unfused route; the bf16 cuDNN conv1d of the same shape
    printed as a different function, for scale). Every ticket counter
@@ -118,17 +122,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    unconditional samples, 10 DPM++ steps each, with peak device memory and a
    profile of one guided step.
 5. Training, a main path of its own (launch counts set to 0 just before
-   each run and read just after), each CLI's ``main``: ``train_vqvae`` on the JAX package's training flagship
-   (``tones:40``, unet64 predictor, unet128 encoder, 512 x 1024 codebook,
+   each run and read just after), each CLI's ``main`` or its loop
+   spelled out as ``main`` runs it: ``train_vqvae`` on the JAX package's
+   training flagship (``tones:40``, unet64 predictor, unet128 encoder, 512 x 1024 codebook,
    class-conditional, batch 16 of 4 s) for 8 steps in bf16, then in f32,
    and ``train_diffusion`` (unet64, class-conditional, bf16, batch 16) for
    5; each run's samples/s (the median of the steady steps), peak device
    memory, and launches asserted (per step, every GroupNorm one statistics,
    one apply and one cluster backward launch: 178 for the VQ-VAE, 131 for
-   the diffusion model; one VQ assign per VQ-VAE step); each run resumed
-   from its save and one step profiled, its GroupNorm and VQ launches
+   the diffusion model; one VQ assign per VQ-VAE step); one more step of
+   each run profiled (the first resumed from its save, the others from the
+   loop the run kept: a resume reads ~1 GB), its GroupNorm and VQ launches
    asserted from the profiler; then one full-width VQ-VAE step (f32, TF32
-   off, batch 1 x 16384) on the card against the same step on the CPU
+   off, batch 1 x 8192) on the card against the same step on the CPU
    through the plain versions (the same codes, the loss within 1e-4
    relative, each gradient leaf within 1e-3 of its largest entry). Then,
    5 steps each in bf16 from the flagship's bf16 checkpoint:
@@ -190,8 +196,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 7. Data parallelism and FSDP (``parallel_paths``): the bf16 flagship
    without the launcher, under torchrun at world size 1 (DP, FSDP, DP at
-   K=4) and on two gloo ranks sharing the card (DP, FSDP with a dcp save);
-   the same bits or losses within 1e-2, launches a rank, state bytes.
+   K=4) and on two gloo ranks sharing the card (DP, FSDP with a dcp save),
+   the three launches running together; the same bits or losses within
+   1e-2, launches a rank, state bytes.
 8. Tensor parallelism (``tensor_parallel_paths``): one torchrun launch of
    4 gloo ranks sharing the card, 2 data rows x 2 model columns, each rank
    through the CLIs' ``main`` or the train loop with --tensor-parallel 2:
@@ -203,6 +210,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    within 1e-2 of the world-1 run's), one more profiled step; every
    rank's launches equal to the world-1 run's, state bytes a rank equal to
    the placements' count; wall seconds, rates and peak memory a rank.
+   Its ranks start after phase 4 and work beside phase 5, phase 9's
+   beside phase 6, then both phases' world-1 runs run here and phase 7
+   follows, alone: the host's cores, not the card, bound these phases,
+   and this process uses few of them. So the rates and profiles of
+   phases 5, 6, 8 and 9 are taken while the card is shared.
 9. Sequence parallelism (``sequence_parallel_paths``): one torchrun launch
    of 4 gloo ranks sharing the card, each holding a quarter of the time
    axis: ``long_audio_convert`` of a 300 s speech-like clip with the
@@ -253,6 +265,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 
@@ -361,6 +374,13 @@ def out_err(got: torch.Tensor, want: torch.Tensor) -> float:
     if want.dtype == torch.bfloat16:
         diff = diff / want.float().abs().clamp(min=1.0)
     return diff.max().item()
+
+
+def float32_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in ulps of want rounded to float32."""
+    w32 = want.float().abs()
+    ulp = torch.nextafter(w32, torch.full_like(w32, float("inf"))) - w32
+    return ((got.double() - want.double()).abs() / ulp.double()).max().item()
 
 
 def check_group_norm(dev, gen):
@@ -1129,8 +1149,10 @@ def check_int8_kernels(dev, gen):
     """The int8 serving path's kernels against their plain versions on the
     card: the convolution and the plain quantize bit for bit, each fused
     quantize bit for bit against the unfused card route and within one
-    code step of its plain version, the int8 GroupNorm modes within 1e-5 /
-    1e-4; returns their JSON entries (launches are phase 10's)."""
+    code step of its plain version, the int8 GroupNorm statistics' group
+    (mean, var) bit for bit (one scale) or within one ulp (one a channel),
+    the apply within 1e-4; returns their JSON entries (launches are phase
+    10's)."""
     n, t = BATCH, SAMPLES
     cases = [
         # (label, n, cin, cout, t, taps, dilation, per-channel scale)
@@ -1230,7 +1252,13 @@ def check_int8_kernels(dev, gen):
     print("quantize then upsample the codes: upsample then quantize's bits")
     del x, up, ref
 
+    # The int8 statistics kernel against its plain version, the same
+    # exact integer sums and float64 steps: group mean and var bit-equal
+    # with one scale, within one float32 ulp with one a channel, a and b
+    # within 1e-6 (rsqrtf against torch.rsqrt); each scale mode timed
+    # beside its bound (the codes read once, the coefficients written once).
     err_stats = err_apply = 0.0
+    stats_timing = {}
     for label, c, per_channel in (("per-tensor", 64, False), ("per-channel", 128, True)):
         x = torch.randn(n, c, t, generator=gen, device=dev) + 0.5
         if per_channel:
@@ -1238,19 +1266,37 @@ def check_int8_kernels(dev, gen):
         qa = split_quantize(x) if per_channel else qact.quantize(x)
         w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
         b = 0.2 * torch.randn(c, generator=gen, device=dev)
-        coeffs = gn.group_norm_coeffs_int8(qa.q, qa.scale, 32, w, b, 1e-5)
-        plain = gn.group_norm_coeffs_plain(qact.dequantize(qa), 32, w, b, 1e-5)
+        *coeffs, mean, var = gn.group_norm_coeffs_int8(qa.q, qa.scale, 32, w, b, 1e-5, True)
+        *plain, pmean, pvar = gn.group_norm_coeffs_int8_plain(qa.q, qa.scale, 32, w, b, 1e-5,
+                                                              True)
+        torch.cuda.synchronize()
+        ulps = max(float32_ulps(mean, pmean), float32_ulps(var, pvar))
+        same = torch.equal(mean, pmean) and torch.equal(var, pvar)
+        e_rel = max(((k - p).abs() / p.abs().clamp(min=1e-30)).max().item()
+                    for k, p in zip(coeffs, plain))
         e_coef = max(((k - p).abs() / p.abs().clamp(min=1.0)).max().item()
                      for k, p in zip(coeffs, plain))
+        print(f"int8 groupnorm statistics {label} [{n}, {c}, {t}]: group mean and var "
+              f"bit-equal to the plain version {same} (at most {ulps:g} float32 ulp apart), "
+              f"(mean, a, b) largest relative gap {e_rel:.3g}")
+        assert (ulps <= 1.0 if per_channel else same) and e_rel <= 1e-6, (label, ulps, e_rel)
+        err_stats = max(err_stats, e_coef)
+        sms = cuda_ms(lambda: gn.group_norm_coeffs_int8(qa.q, qa.scale, 32, w, b, 1e-5), 20)
+        splain = cuda_ms(lambda: gn.group_norm_coeffs_int8_plain(qa.q, qa.scale, 32, w, b,
+                                                                 1e-5), 5)
+        sb, sby = bound_ms(qa.q.numel() + 3 * 4 * n * c, 3 * qa.q.numel(), INT8_OP_PER_S)
+        print(f"int8 groupnorm statistics timing {label} [{n}, {c}, {t}]: {sms:.4f} ms "
+              f"({100 * sb / sms:.1f}% of its bound {sb:.4f} by {sby}; plain {splain:.4f})")
+        stats_timing[label] = (sms, splain, sb, sby)
         for dtype in (torch.float32, torch.bfloat16):
             y = gn.group_norm_apply_int8(qa.q, qa.scale, *plain, True, dtype)
             y_p = gn.group_norm_apply_plain(qact.dequantize(qa), *plain, True).to(dtype)
             e_apply = out_err(y, y_p)
-            print(f"int8 groupnorm {label} [{n}, {c}, {t}] -> {str(dtype)[6:]}: (mean, a, b) "
-                  f"rel err {e_coef:.3g}, apply+gelu err {e_apply:.3g}")
-            assert e_coef <= 1e-4 and e_apply <= (1e-4 if dtype == torch.float32 else 2e-2)
+            print(f"int8 groupnorm apply {label} [{n}, {c}, {t}] -> {str(dtype)[6:]}: "
+                  f"apply+gelu err {e_apply:.3g}")
+            assert e_apply <= (1e-4 if dtype == torch.float32 else 2e-2)
             if dtype == torch.float32:
-                err_stats, err_apply = max(err_stats, e_coef), max(err_apply, e_apply)
+                err_apply = max(err_apply, e_apply)
         del x, qa, y, y_p
 
     # Timing at the top level's shapes: [16, 64, 64000] 64 -> 64, 3 taps,
@@ -1289,18 +1335,13 @@ def check_int8_kernels(dev, gen):
     ww = 1.0 + 0.2 * torch.randn(64, generator=gen, device=dev)
     bw = 0.2 * torch.randn(64, generator=gen, device=dev)
     coeffs = gn.group_norm_coeffs_int8(qa.q, qa.scale, 32, ww, bw, 1e-5)
-    sms = cuda_ms(lambda: gn.group_norm_coeffs_int8(qa.q, qa.scale, 32, ww, bw, 1e-5), 20)
-    splain = cuda_ms(lambda: gn.group_norm_coeffs_plain(qact.dequantize(qa), 32, ww, bw,
-                                                        1e-5), 20)
     ams = cuda_ms(lambda: gn.group_norm_apply_int8(qa.q, qa.scale, *coeffs, True,
                                                    torch.float32), 20)
     aplain = cuda_ms(lambda: gn.group_norm_apply_plain(qact.dequantize(qa), *coeffs, True), 20)
-    sb, sby = bound_ms(qa.q.numel() + 3 * 4 * n * 64, 5 * qa.q.numel())
     ab, aby = bound_ms(qa.q.numel() * 5 + 3 * 4 * n * 64, 26 * qa.q.numel())
-    print(f"int8 groupnorm timing [{n}, 64, {t}]: statistics + fold {sms:.4f} ms "
-          f"({100 * sb / sms:.1f}% of its bound {sb:.4f} by {sby}; plain {splain:.4f}); "
-          f"apply+gelu to f32 {ams:.4f} ms ({100 * ab / ams:.1f}% of its bound {ab:.4f} by "
-          f"{aby}; plain {aplain:.4f})")
+    print(f"int8 groupnorm apply timing [{n}, 64, {t}]: apply+gelu to f32 {ams:.4f} ms "
+          f"({100 * ab / ams:.1f}% of its bound {ab:.4f} by {aby}; plain {aplain:.4f})")
+    sms, splain, sb, sby = stats_timing["per-tensor"]
     entries += [
         dict(name="group_norm_stats_int8", route="cuda",
              source="vq_voice_swap_torch/csrc/group_norm_stats.cu",
@@ -1628,6 +1669,8 @@ def _kernel_class(name: str) -> str:
         return "fused resblock apply (CUDA)"
     if "group_norm_stats_kernel" in name:
         return "groupnorm stats + fold (CUDA)"
+    if "group_norm_stats_int8_kernel" in name:
+        return "groupnorm int8 stats + fold (CUDA)"
     if "group_norm_bwd_" in name:
         return "groupnorm backward (CUDA)"
     if name.startswith("apply_kernel"):
@@ -1987,8 +2030,11 @@ def recorded_log(into: list):
 
 
 def training_run(dev, workdir: str, name: str, cli, argv, steps: int, launches, smi: str,
-                 k: int = 1, loop_cls=None):
-    """One train CLI run of ``steps`` steps (saved at the last), with the
+                 k: int = 1, loop_cls=None, save: bool = True):
+    """One train CLI run of ``steps`` steps (saved at the last; with
+    ``save`` false not at all, for runs whose files nothing reads: a
+    flagship's save writes ~1 GB and takes ~3 s, and every CLI's save is
+    checked in another run), with the
     launch counts set to 0 just before it; asserts the launches of every
     kernel of the path (``launches``, per step) and prints samples/s (the
     median over the steps after two warm-up steps, less the last, whose
@@ -2000,8 +2046,8 @@ def training_run(dev, workdir: str, name: str, cli, argv, steps: int, launches, 
     loop is kept in LOOPS[name] for ``profile_loop``. Returns the run's
     directory, argv, counts and what the CLI printed."""
     out = os.path.join(workdir, name.replace(" ", "_"))
-    argv = argv + ["--max-steps", str(steps), "--save-interval", str(steps),
-                   "--output-dir", out, "--device", "cuda"]
+    argv = argv + ["--max-steps", str(steps), "--save-interval",
+                   str(steps if save else 10**9), "--output-dir", out, "--device", "cuda"]
     if k > 1:
         argv += ["--steps-per-dispatch", str(k)]
     torch.cuda.synchronize(dev)  # the peak-memory reset needs the card's context
@@ -2041,7 +2087,7 @@ def training_run(dev, workdir: str, name: str, cli, argv, steps: int, launches, 
     if "codebook_used" in log[0][1]:
         print(f"  codebook_used {[f['codebook_used'] for _, f in log]}")
     for f in ("model.npz", "opt.pt"):
-        assert os.path.exists(os.path.join(out, f)), f
+        assert os.path.exists(os.path.join(out, f)) == save, (f, save)
     calls = steps if k == 1 else WARMUP_STEPS + 1 + steps % k
     assert counts["group_norm_coeffs"] == counts["group_norm_apply"] == \
         launches["forward"] * calls
@@ -2084,16 +2130,17 @@ def _profile_step(dev, loop, name: str, launches) -> None:
 
 def train_step_card_vs_cpu(dev, name: str, model_kwargs, launches):
     """One full-width VQ-VAE training forward and backward (f32, TF32 off)
-    at batch 1 of 16384 samples (a multiple of the downsample rate near
-    1 s) on the card, through the kernels, and on the CPU, through their
-    plain versions, from the same seeded weights and draws: the same codes,
-    the loss within 1e-4 relative and each parameter's gradient within
-    1e-3 of its largest entry plus 1e-6 of the largest gradient (a bias
-    before a GroupNorm has a true gradient of 0)."""
+    at batch 1 of 8192 samples (a multiple of the downsample rate near
+    0.5 s, cut from 1 s for the script's time limit) on the card, through
+    the kernels, and on the CPU, through their plain versions, from the
+    same seeded weights and draws: the same codes, the loss within 1e-4
+    relative and each parameter's gradient within 1e-3 of its largest
+    entry plus 1e-6 of the largest gradient (a bias before a GroupNorm has
+    a true gradient of 0)."""
     torch.backends.cudnn.allow_tf32 = False
     model = VQVAE(**model_kwargs)
     seed_weights(model, 11)
-    t = 16384
+    t = 8192
     gen = torch.Generator().manual_seed(12)
     x = torch.from_numpy(speech_like(21, t))[None, :, None]
     with torch.no_grad():
@@ -2179,15 +2226,20 @@ def guidance_training_paths(dev, workdir: str, flagship: str, diffusion: str, sm
                          "--pretrained-path", diffusion], 2,
          per_step(GN_PER_CLASSIFIER, GN_PER_CLASSIFIER, 0)),
     ):
-        out, full_argv, runs[name], printed = training_run(
-            dev, workdir, name, cli, argv, n_steps, launches, smi)
-        if "warm" in name:
+        warm = "warm" in name
+        # enc-pred's and the classifier's saves are checked at K=4
+        # (--async-save); nothing reads these runs' files.
+        out, _, runs[name], printed = training_run(
+            dev, workdir, name, cli, argv, n_steps, launches, smi,
+            loop_cls=None if warm else loop_cls,
+            save=not name.startswith(("enc-pred", "classifier")))
+        if warm:
             want = _pred_down_path_size(diffusion)
             assert f"loaded {want} pre-trained parameters" in printed, want
             print(f"  classifier warm start: {want} scalars copied from the diffusion "
                   f"predictor's down path, as its shapes give")
         else:
-            profile_train_step(dev, loop_cls, full_argv, name, launches)
+            profile_loop(dev, name, launches)
         if "add-classes" in name:
             before, after = _params_npz(flagship), _params_npz(
                 os.path.join(out, "model.npz"))
@@ -2216,9 +2268,10 @@ def wavegrad_paths(dev, workdir: str, clips: np.ndarray, smi: str):
     ckpt = None
     for name, argv in (("wavegrad vqvae bf16", TRAIN_WAVEGRAD_ARGV + ["--bf16"]),
                        ("wavegrad vqvae f32", TRAIN_WAVEGRAD_ARGV)):
-        out, full_argv, runs[name], _ = training_run(
-            dev, workdir, name, train_vqvae, argv, NEW_TRAIN_STEPS, launches, smi)
-        profile_train_step(dev, VQVAETrainLoop, full_argv, name, launches)
+        out, _, runs[name], _ = training_run(
+            dev, workdir, name, train_vqvae, argv, NEW_TRAIN_STEPS, launches, smi,
+            loop_cls=VQVAETrainLoop, save=name.endswith("f32"))  # the f32 run's is read
+        profile_loop(dev, name, launches)
         ckpt = os.path.join(out, "model.npz")
 
     src = os.path.join(workdir, "in.wav")
@@ -2286,13 +2339,20 @@ def training_paths(dev, workdir: str, clips: np.ndarray, smi: str):
         ("vqvae bf16", train_vqvae, VQVAETrainLoop, TRAIN_VQVAE_ARGV + ["--bf16"],
          TRAIN_STEPS, per_step(gn_vqvae, gn_vqvae, 1)),
         ("vqvae f32", train_vqvae, VQVAETrainLoop, TRAIN_VQVAE_ARGV, TRAIN_STEPS,
-         per_step(gn_vqvae, gn_vqvae, 1)),
+         per_step(gn_vqvae, gn_vqvae, 1)),  # not saved
         ("diffusion bf16", train_diffusion, DiffusionTrainLoop, TRAIN_DIFFUSION_ARGV, 5,
          per_step(GN_PER_PREDICTOR, GN_PER_PREDICTOR, 0)),
     ):
-        out, full_argv, runs[name], _ = training_run(dev, workdir, name, cli, argv, steps,
-                                                     launches, smi)
-        profile_train_step(dev, loop_cls, full_argv, name, launches)
+        # The first run's profiled step resumes from its save, as the CLI
+        # would; the others profile the loop they kept (a resume reads ~1 GB).
+        resume = name == "vqvae bf16"
+        out, full_argv, runs[name], _ = training_run(
+            dev, workdir, name, cli, argv, steps, launches, smi,
+            loop_cls=None if resume else loop_cls, save=name != "vqvae f32")
+        if resume:
+            profile_train_step(dev, loop_cls, full_argv, name, launches)
+        else:
+            profile_loop(dev, name, launches)
         kept[name] = os.path.join(out, "model.npz")
     torch.cuda.empty_cache()
     train_step_card_vs_cpu(dev, "unet64 + unet128", dict(
@@ -2324,13 +2384,14 @@ def _npz_leaf_errors(got_path: str, want_path: str):
     largest entry, its leaf, whether every array is the same bits)."""
     with np.load(got_path) as got, np.load(want_path) as want:
         assert got.files == want.files
-        same = all(np.array_equal(got[k], want[k]) for k in want.files)
-        worst, leaf = 0.0, None
-        for k in want.files:
+        same, worst, leaf = True, 0.0, None
+        for k in want.files:  # an npz reads an array from its file at each index
+            g, w = got[k], want[k]
+            same = same and np.array_equal(g, w)
             if not k.startswith("params/"):
                 continue
-            w = want[k].astype(np.float64)
-            err = np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)
+            w = w.astype(np.float64)
+            err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
             if err > worst:
                 worst, leaf = err, k
     return worst, leaf, same
@@ -2458,7 +2519,7 @@ def graph_training_paths(dev, workdir: str, smi: str, flagship: str):
     ):
         out, full_argv, runs[name], _ = training_run(
             dev, workdir, name, cli, argv, GRAPH_STEPS, launches, smi, k=GRAPH_K,
-            loop_cls=loop_cls)
+            loop_cls=loop_cls, save="--async-save" in argv)
         if "--async-save" in argv:
             _check_async_markers(out, GRAPH_STEPS)
             snapshot = "device" if "device" in argv else "host"
@@ -2484,7 +2545,7 @@ def graph_training_paths(dev, workdir: str, smi: str, flagship: str):
                 f"--grad-checkpoint={policy}"]
             out, _, runs[name], _ = training_run(
                 dev, workdir, name, train_vqvae, argv, TRAIN_STEPS if k > 1 else 5, remat,
-                smi, k=k, loop_cls=VQVAETrainLoop if k > 1 else None)
+                smi, k=k, loop_cls=VQVAETrainLoop if k > 1 else None, save=False)
             if k > 1:
                 profile_loop(dev, name, per_step(gn_vqvae + 2 * RESBLOCKS_VQVAE, gn_vqvae, 1))
             shutil.rmtree(out)
@@ -2860,12 +2921,13 @@ def data_eval_paths(dev, workdir: str, smi: str, flagship: str, uncond_ckpt: str
 
 # Data parallelism and FSDP: the bf16 flagship of phase 5, every rank a
 # process of its own started by torchrun (python -m torch.distributed.run),
-# each running this script's rank_main: a run without the launcher, then
-# one process under torchrun that runs DP, FSDP and DP at K=4 one after the
-# other (the group stays up between them), then two ranks sharing the card
-# over gloo, DP and then FSDP (saved as dcp). Four steps (one K=4 window,
-# as phase 5's other K=4 runs), cut from eight to keep the script inside
-# its time limit.
+# each running this script's rank_main. Three launches run together (one
+# after the other until the script outgrew its time limit): a run without
+# the launcher; one process under torchrun that runs DP, FSDP and DP at K=4
+# one after the other (the group stays up between them); two ranks sharing
+# the card over gloo, DP and then FSDP (saved as dcp). Four steps (one K=4
+# window, as phase 5's other K=4 runs), cut from eight to keep the script
+# inside its time limit.
 PARALLEL_STEPS = 4
 # The world-size-1 runs whose host time a step is profiled (one more step,
 # after the run's own) and set beside the plain run's.
@@ -2874,27 +2936,69 @@ PARALLEL_TIMEOUT = 420
 RANK_RUN = "--rank-run"
 
 
-def _launch(workdir: str, name: str, nproc: int, args) -> str:
-    """Run this script with ``args`` in a new process session, under
-    torchrun with ``nproc`` ranks (0: without the launcher), and return
-    what it printed; raise if it fails or outlasts PARALLEL_TIMEOUT (its
-    processes are killed either way)."""
-    cmd = [sys.executable]
-    if nproc:
-        cmd += ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(nproc)]
-    cmd += [os.path.abspath(__file__), *args]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True, cwd=workdir)
-    try:
-        printed, _ = proc.communicate(timeout=PARALLEL_TIMEOUT)
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, 9)
-            proc.wait()
-    if proc.returncode != 0:
-        print(printed[-6000:])
-        raise RuntimeError(f"{name}: {' '.join(cmd)} exited with {proc.returncode}")
-    return printed
+class Launch:
+    """This script run with ``args`` in a new process session, under
+    torchrun with ``nproc`` ranks (0: without the launcher), what it prints
+    kept in a file of ``workdir``. Launches run beside this process's
+    phases and each other (phase 8's beside phase 5, phase 9's beside
+    phase 6, phase 7's three together), so the rates they print are taken
+    beside the others' work.
+    ``wait`` returns what the launch printed and its wall seconds (from its
+    start to its processes' end); it raises if the launch fails or
+    outlasts PARALLEL_TIMEOUT from its start. Its processes are killed
+    either way, and ``stop_all`` kills those of every launch still
+    running."""
+
+    running: list = []
+
+    def __init__(self, workdir: str, name: str, nproc: int, args):
+        self.name = name
+        self.cmd = [sys.executable]
+        if nproc:
+            self.cmd += ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+                         str(nproc)]
+        self.cmd += [os.path.abspath(__file__), *args]
+        self.log = os.path.join(workdir, "launch_" + re.sub(r"\W+", "_", name) + ".log")
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(self.cmd, stdout=out, stderr=subprocess.STDOUT,
+                                         text=True, start_new_session=True, cwd=workdir)
+        self.ended = None
+        self.watch = threading.Thread(target=self._watch, daemon=True)
+        self.watch.start()
+        Launch.running.append(self)
+
+    def _watch(self) -> None:
+        self.proc.wait()
+        self.ended = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, 9)
+            self.proc.wait()
+        if self in Launch.running:
+            Launch.running.remove(self)
+
+    def wait(self):
+        self.watch.join(timeout=max(PARALLEL_TIMEOUT - (time.perf_counter() - self.t0), 1))
+        timed_out = self.ended is None
+        self.stop()
+        if timed_out:
+            raise RuntimeError(f"{self.name}: {' '.join(self.cmd)} outlasted "
+                               f"{PARALLEL_TIMEOUT} s")
+        wall = self.ended - self.t0
+        with open(self.log) as f:
+            printed = f.read()
+        if self.proc.returncode != 0:
+            print(printed[-6000:])
+            raise RuntimeError(f"{self.name}: {' '.join(self.cmd)} exited with "
+                               f"{self.proc.returncode}")
+        return printed, wall
+
+    @classmethod
+    def stop_all(cls) -> None:
+        for launch in list(cls.running):
+            launch.stop()
 
 
 def check_gloo_collectives() -> None:
@@ -3014,15 +3118,21 @@ def rank_main(spec: str) -> int:
 
 
 def parallel_runs(workdir: str, nproc: int, runs, gloo: bool = False):
-    """Phase-7 runs of PARALLEL_STEPS steps in one launch of ``nproc``
-    ranks (0: without the launcher): {name: (its directory, each rank's
-    result)}."""
+    """Start phase-7 runs of PARALLEL_STEPS steps in one launch of
+    ``nproc`` ranks (0: without the launcher); ``parallel_results`` waits
+    for them."""
     spec = dict(root=workdir, steps=PARALLEL_STEPS, gloo=gloo,
                 runs=[dict(name=n, k=k, argv=a, profile=n in PROFILED) for n, k, a in runs])
-    t0 = time.perf_counter()
-    printed = _launch(workdir, ", ".join(n for n, _, _ in runs), nproc,
-                      [RANK_RUN, json.dumps(spec)])
-    wall = time.perf_counter() - t0
+    launch = Launch(workdir, ", ".join(n for n, _, _ in runs), nproc,
+                    [RANK_RUN, json.dumps(spec)])
+    return launch, nproc, runs, gloo
+
+
+def parallel_results(workdir: str, started):
+    """{name: (its directory, each rank's result)} of the runs that
+    ``parallel_runs`` started."""
+    launch, nproc, runs, gloo = started
+    printed, wall = launch.wait()
     if gloo:
         assert printed.count(" carries ") == nproc, printed[-3000:]
     out = {}
@@ -3072,12 +3182,13 @@ def fsdp_state_bytes(whole: int, worlds) -> dict:
 
 
 def parallel_paths(workdir: str, smi: str):
-    """The flagship's loop in bf16 with deterministic algorithms, in fresh
-    processes: without the launcher; under torchrun at world size 1 with
-    NCCL, DP, then --fsdp, then DP at --steps-per-dispatch 4; and two ranks
-    on the card over gloo (NCCL refuses two ranks on one device) at
-    per-rank batch 8, DP and then FSDP. Asserts that gloo carries the
-    collectives between the two processes, DP and K=4 have the plain
+    """The flagship's loop in bf16 with deterministic algorithms, in three
+    launches of fresh processes that run together: without the launcher;
+    under torchrun at world size 1 with NCCL, DP, then --fsdp, then DP at
+    --steps-per-dispatch 4; and two ranks on the card over gloo (NCCL
+    refuses two ranks on one device) at per-rank batch 8, DP and then
+    FSDP. Asserts that gloo carries the collectives between the two
+    processes, DP and K=4 have the plain
     run's bits (logged values, model and EMA), FSDP within 1e-3 of its
     losses (or its bits), every rank's launches a step (1 VQ and 178
     GroupNorm statistics, apply and backward), the two ranks' losses
@@ -3089,13 +3200,17 @@ def parallel_paths(workdir: str, smi: str):
     from the placements). Returns {run name, rank: counts}."""
     gn_vqvae = GN_PER_PREDICTOR + GN_PER_ENCODER128
     argv = TRAIN_VQVAE_ARGV + ["--bf16", "--device", "cuda"]
-    runs = parallel_runs(workdir, 0, [("plain", 1, argv)])
-    runs.update(parallel_runs(workdir, 1, [("dp", 1, argv), ("fsdp", 1, argv + ["--fsdp"]),
-                                           ("dp k4", GRAPH_K, argv)]))
     half = TRAIN_VQVAE_ARGV[:TRAIN_VQVAE_ARGV.index("--batch-size")] + [
         "--batch-size", str(BATCH // 2), "--bf16", "--device", "cuda:0"]
-    runs.update(parallel_runs(workdir, 2, [("gloo dp 2", 1, half), ("gloo fsdp 2", 1, half + [
-        "--fsdp", "--checkpoint-format", "dcp"])], gloo=True))
+    started = [
+        parallel_runs(workdir, 0, [("plain", 1, argv)]),
+        parallel_runs(workdir, 1, [("dp", 1, argv), ("fsdp", 1, argv + ["--fsdp"]),
+                                   ("dp k4", GRAPH_K, argv)]),
+        parallel_runs(workdir, 2, [("gloo dp 2", 1, half), ("gloo fsdp 2", 1, half + [
+            "--fsdp", "--checkpoint-format", "dcp"])], gloo=True)]
+    runs = {}
+    for launch in started:
+        runs.update(parallel_results(workdir, launch))
 
     counts = {}
     for name, (out, ranks) in runs.items():
@@ -3404,16 +3519,35 @@ def _scaled_error(got: np.ndarray, want: np.ndarray) -> float:
     return float(np.abs(got.astype(np.float64) - want).max() / max(1.0, np.abs(want).max()))
 
 
-def tensor_parallel_paths(workdir: str, smi: str, ckpt: str, uncond_ckpt: str) -> dict:
-    """Phase 8: the swap (phase 3's model, f32 with TF32 off, 4 DPM++
-    steps), bf16 sampling (phase 3's unconditional unet64, --fuse-levels
-    2, 2 samples, 3 steps) and the bf16 flagship's training (global batch
-    4, 2 steps, deterministic, without and with --fsdp, and one more
-    profiled step without it) on TP_RANKS gloo ranks at TP_SIZE model
-    columns, against their world-1 runs in this process. Asserts the
-    swap's codes equal and its samples, the sampled files and the losses
-    within the stated tolerances; the whole leaves the same bytes on
-    every rank after the profiled steps; every rank's
+def tensor_parallel_start(workdir: str, ckpt: str, uncond_ckpt: str) -> Launch:
+    """Start phase 8's launch of TP_RANKS ranks."""
+    root = os.path.join(workdir, "tp")
+    os.makedirs(root)
+    clip = os.path.join(workdir, "in.wav")
+    spec = json.dumps(dict(root=root, ckpt=ckpt, uncond=uncond_ckpt, clip=clip))
+    return Launch(workdir, "tensor parallelism", TP_RANKS, [TP_SPEC, spec])
+
+
+def tensor_parallel_world1(workdir: str, ckpt: str, uncond_ckpt: str):
+    """Phase 8's world-1 runs in this process: (their results, seconds)."""
+    t0 = time.perf_counter()
+    one = tp_runs(os.path.join(workdir, "tp"), ckpt, uncond_ckpt,
+                  os.path.join(workdir, "in.wav"), tp=False)
+    return one, time.perf_counter() - t0
+
+
+def tensor_parallel_paths(workdir: str, smi: str, launch: Launch, world1_runs) -> dict:
+    """Phase 8, its ranks started by ``tensor_parallel_start`` and its
+    world-1 runs by ``tensor_parallel_world1``: the swap (phase 3's model,
+    f32 with TF32 off, 4 DPM++ steps), bf16 sampling (phase 3's
+    unconditional unet64, --fuse-levels 2, 2 samples, 3 steps) and the
+    bf16 flagship's training (global batch 4, 2 steps, deterministic,
+    without and with --fsdp, and one more profiled step without it) on
+    TP_RANKS gloo ranks at TP_SIZE model columns, against their world-1
+    runs in this process. Asserts the swap's codes equal and its samples,
+    the sampled files and the losses within the stated tolerances; the
+    whole leaves the same bytes on every rank after the profiled steps;
+    every rank's
     launches equal to the world-1 run's (the swap: 1 VQ and 131
     GroupNorm statistics and apply a predictor call; sampling: 10 of each
     fused kernel a step; training: 1 VQ and 178 GroupNorm statistics,
@@ -3421,15 +3555,8 @@ def tensor_parallel_paths(workdir: str, smi: str, ckpt: str, uncond_ckpt: str) -
     placements' count. Prints each run's wall seconds, rate and peak
     device memory a rank. Returns {run, rank: launch counts}."""
     root = os.path.join(workdir, "tp")
-    os.makedirs(root)
-    clip = os.path.join(workdir, "in.wav")
-    t0 = time.perf_counter()
-    one = tp_runs(root, ckpt, uncond_ckpt, clip, tp=False)
-    world1 = time.perf_counter() - t0
-    spec = json.dumps(dict(root=root, ckpt=ckpt, uncond=uncond_ckpt, clip=clip))
-    t0 = time.perf_counter()
-    printed = _launch(workdir, "tensor parallelism", TP_RANKS, [TP_SPEC, spec])
-    wall = time.perf_counter() - t0
+    one, world1 = world1_runs
+    printed, wall = launch.wait()
     assert printed.count(" carries ") == TP_RANKS, printed[-3000:]
     ranks = []
     for r in range(TP_RANKS):
@@ -3437,7 +3564,7 @@ def tensor_parallel_paths(workdir: str, smi: str, ckpt: str, uncond_ckpt: str) -
             ranks.append(json.load(f))
     print(f"phase 8 on {smi}: the world-1 runs {world1:.1f} s in this process; one launch of "
           f"{TP_RANKS} gloo ranks on {TP_DEVICE}, {TP_RANKS // TP_SIZE} data rows x {TP_SIZE} "
-          f"model columns: {wall:.1f} s wall")
+          f"model columns: {wall:.1f} s wall (beside phase 5)")
     counts = {}
 
     def same_launches(run: str, per: str, calls: int):
@@ -3595,7 +3722,7 @@ def recorded_codes(into: list):
 def seq_runs(root: str, vqvae: str, diffusion: str, clip: str) -> dict:
     """Phase 9's runs in this process, over as many ranks as its group
     has (one without a group): ``long_audio_convert`` of the 5-minute clip
-    (f32, TF32 off, 10 DPM++ steps), then SEQ_TRAIN_STEPS steps of
+    (f32, TF32 off, SEQ_SWAP_STEPS DPM++ steps), then SEQ_TRAIN_STEPS steps of
     ``make_seq_parallel_train_step`` on the unet64 diffusion model at
     batch 2 of 16 s (deterministic algorithms). Writes the gathered
     conversion and this rank's codes into root; returns {run: wall
@@ -3719,7 +3846,7 @@ def _codes_check(enc1: np.ndarray, enc4: np.ndarray, dictionary: np.ndarray,
 def _decode_codes(vqvae: str, codes: np.ndarray) -> np.ndarray:
     """The one-device decode of ``codes`` [1, T1] as ``long_audio_convert``
     decodes its own (seed 0: x_T, then the sampler's draws; label
-    SEQ_SWAP_LABEL; 10 DPM++ steps with the x0 constraint)."""
+    SEQ_SWAP_LABEL; SEQ_SWAP_STEPS DPM++ steps with the x0 constraint)."""
     from vq_voice_swap_torch.parallel import sequence as sq
 
     dev = torch.device(SEQ_DEVICE)
@@ -3735,11 +3862,36 @@ def _decode_codes(vqvae: str, codes: np.ndarray) -> np.ndarray:
     return out.reshape(-1).cpu().numpy()
 
 
-def sequence_parallel_paths(workdir: str, smi: str) -> dict:
-    """Phase 9: ``long_audio_convert`` of a 5-minute speech-like clip with
-    the flagship VQ-VAE (f32, TF32 off, 10 DPM++ steps, label 1) and 2
-    steps of ``make_seq_parallel_train_step`` on the unet64 diffusion
-    model at batch 2 of 16 s, on SEQ_RANKS gloo ranks sharing the card,
+def sequence_parallel_start(workdir: str):
+    """Write phase 9's checkpoints and clip and start its launch of
+    SEQ_RANKS ranks: (the launch, the VQ-VAE's path, the diffusion
+    model's, its parameter count)."""
+    root = os.path.join(workdir, "seq")
+    os.makedirs(root)
+    vqvae, diffusion, n_params = _seq_checkpoints(workdir)
+    clip = os.path.join(workdir, "long.wav")
+    write_wav(clip, speech_like(11, SEQ_SWAP_SAMPLES))
+    spec = json.dumps(dict(root=root, vqvae=vqvae, diffusion=diffusion, clip=clip))
+    return Launch(workdir, "sequence parallelism", SEQ_RANKS, [SEQ_SPEC, spec]), vqvae, \
+        diffusion, n_params
+
+
+def sequence_parallel_world1(workdir: str, started):
+    """Phase 9's world-1 runs in this process: (their results, seconds)."""
+    _, vqvae, diffusion, _ = started
+    t0 = time.perf_counter()
+    one = seq_runs(os.path.join(workdir, "seq"), vqvae, diffusion,
+                   os.path.join(workdir, "long.wav"))
+    return one, time.perf_counter() - t0
+
+
+def sequence_parallel_paths(workdir: str, smi: str, started, world1_runs) -> dict:
+    """Phase 9, its ranks started by ``sequence_parallel_start`` and its
+    world-1 runs by ``sequence_parallel_world1``: ``long_audio_convert``
+    of a 5-minute speech-like clip with the flagship VQ-VAE (f32, TF32
+    off, 10 DPM++ steps, label 1) and 2 steps of
+    ``make_seq_parallel_train_step`` on the unet64 diffusion model at
+    batch 2 of 16 s, on SEQ_RANKS gloo ranks sharing the card,
     against their world-1 runs in this process (which convert the clip on
     one device: GroupNorm groups of 19.2 M elements at unet64's first up
     level, beyond 2^24). Asserts the encoder outputs within
@@ -3751,19 +3903,11 @@ def sequence_parallel_paths(workdir: str, smi: str) -> dict:
     split reduce and split dx a step, and no group_norm_coeffs, cluster
     backward or fused launch. Prints wall seconds, RTF, peak GiB a rank
     and the collectives. Returns {run, rank: launch counts}."""
+    launch, vqvae, diffusion, n_params = started
     root = os.path.join(workdir, "seq")
-    os.makedirs(root)
-    vqvae, diffusion, n_params = _seq_checkpoints(workdir)
-    clip = os.path.join(workdir, "long.wav")
-    write_wav(clip, speech_like(11, SEQ_SWAP_SAMPLES))
     seconds_audio = SEQ_SWAP_SAMPLES / SAMPLE_RATE
-    t0 = time.perf_counter()
-    one = seq_runs(root, vqvae, diffusion, clip)
-    world1 = time.perf_counter() - t0
-    spec = json.dumps(dict(root=root, vqvae=vqvae, diffusion=diffusion, clip=clip))
-    t0 = time.perf_counter()
-    printed = _launch(workdir, "sequence parallelism", SEQ_RANKS, [SEQ_SPEC, spec])
-    wall = time.perf_counter() - t0
+    one, world1 = world1_runs
+    printed, wall = launch.wait()
     assert printed.count(" carries ") == SEQ_RANKS, printed[-3000:]
     ranks = []
     for r in range(SEQ_RANKS):
@@ -3771,7 +3915,7 @@ def sequence_parallel_paths(workdir: str, smi: str) -> dict:
             ranks.append(json.load(f))
     print(f"phase 9 on {smi}: the world-1 runs {world1:.1f} s in this process; one launch of "
           f"{SEQ_RANKS} gloo ranks on {SEQ_DEVICE}, the time axis cut in {SEQ_RANKS}: "
-          f"{wall:.1f} s wall")
+          f"{wall:.1f} s wall (beside phase 6 and the world-1 runs)")
     counts = {}
     zero = ("group_norm_coeffs", "group_norm_backward", "_bwd_cluster", "_bwd_two_kernel",
             "fused_resblock_stats", "fused_resblock_apply")
@@ -3897,14 +4041,10 @@ def plain_versions():
     def conv_plain(qa, weight, bias, *, stride=1, dilation=1, dtype=None, conv=None):
         return conv_int8_plain(qa, weight, bias, stride, dilation, dtype)
 
-    def coeffs_int8_plain(q, scale, num_groups, weight, bias, eps):
-        return gn.group_norm_coeffs_plain(gn.dequantize_codes(q, scale), num_groups, weight,
-                                          bias, eps)
-
     plain = dict(quantize=qact.quantize_plain, conv1d_int8=conv_plain,
                  qact_group_norm=qact.qact_group_norm_plain, group_norm=group_norm_plain,
                  group_norm_coeffs=gn.group_norm_coeffs_plain,
-                 group_norm_coeffs_int8=coeffs_int8_plain,
+                 group_norm_coeffs_int8=gn.group_norm_coeffs_int8_plain,
                  quantize_group_norm=qact.quantize_group_norm_plain,
                  quantize_residual=qact.quantize_residual_plain)
     saved = {k: getattr(layers, k) for k in plain}
@@ -4116,36 +4256,43 @@ def main() -> int:
         guided_serving_time(dev, ckpt, uncond_ckpt, ep_ckpt, clf_ckpt, clips, smi)
         check_tickets("the main paths and serving")
         print(f"phase 4: {time.perf_counter() - t_start:.1f} s")
-        # Training last: its runs and profiles come after the serving
-        # phases' profiler checks, as they did before training was ported.
+        # The host's cores, not the card, bound the multi-process phases, and
+        # this process uses few of them: phase 8's ranks (~11 GB of the card)
+        # work beside phase 5 and phase 9's (~15 GB) beside phase 6; phase
+        # 7's three launches (~50 GB) run alone after them. So the rates and
+        # profiles of phases 5, 6, 8 and 9 are taken on a shared card.
+        tp_launch = tensor_parallel_start(workdir, ckpt, uncond_ckpt)
+        # Training after the serving phases' profiler checks, as it ran
+        # before training was ported.
         training = training_paths(dev, workdir, clips, smi)
         print("training launches, all runs: " + ", ".join(
             f"{k} {sum(c[k] for c in training.values())}" for k in (
                 "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
         check_tickets("the training paths")
         reference_pt_swap(dev, workdir, ckpt)
-        print(f"phase 5: {time.perf_counter() - t_start:.1f} s")
+        print(f"phase 5: {time.perf_counter() - t_start:.1f} s (beside phase 8's ranks)")
+        torch.cuda.empty_cache()
+        seq_started = sequence_parallel_start(workdir)
         # Real-audio data and eval, from the tones flagship's bf16 run
         # (training_run's directory for "vqvae bf16"), phase 3's
         # unconditional unet64 and classifier.
         flagship = os.path.join(workdir, "vqvae_bf16", "model.npz")
         evals = data_eval_paths(dev, workdir, smi, flagship, uncond_ckpt, clf_ckpt)
-        print(f"phase 6: {time.perf_counter() - t_start:.1f} s")
+        print(f"phase 6: {time.perf_counter() - t_start:.1f} s (beside phase 9's ranks)")
         print("data and eval launches, all runs: " + ", ".join(
             f"{k} {sum(c[k] for c in evals.values())}" for k in (
                 "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
-        parallel = parallel_paths(workdir, smi)
-        print(f"phase 7: {time.perf_counter() - t_start:.1f} s")
-        print("parallel launches, all ranks: " + ", ".join(
-            f"{k} {sum(c[k] for c in parallel.values())}" for k in (
-                "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
-        tensor_parallel = tensor_parallel_paths(workdir, smi, ckpt, uncond_ckpt)
+        # Phases 8 and 9: their world-1 runs here, then their ranks' results.
+        torch.cuda.empty_cache()
+        tp_one = tensor_parallel_world1(workdir, ckpt, uncond_ckpt)
+        seq_one = sequence_parallel_world1(workdir, seq_started)
+        tensor_parallel = tensor_parallel_paths(workdir, smi, tp_launch, tp_one)
         print(f"phase 8: {time.perf_counter() - t_start:.1f} s")
         print("tensor-parallel launches, all ranks: " + ", ".join(
             f"{k} {sum(c[k] for c in tensor_parallel.values())}" for k in (
                 "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward",
                 "fused_resblock_stats", "fused_resblock_apply")))
-        sequence = sequence_parallel_paths(workdir, smi)
+        sequence = sequence_parallel_paths(workdir, smi, seq_started, seq_one)
         print(f"phase 9: {time.perf_counter() - t_start:.1f} s")
         print("sequence-parallel launches, all ranks and the world-1 runs: " + ", ".join(
             f"{k} {sum(c[k] for c in sequence.values())}" for k in (
@@ -4155,6 +4302,12 @@ def main() -> int:
             if k["name"] == "group_norm_bwd_split":  # phase 9's training, rank 0
                 c = sequence["train rank 0"]
                 k["launches"] = c["group_norm_bwd_reduce"] + c["group_norm_bwd_dx"]
+        torch.cuda.empty_cache()
+        parallel = parallel_paths(workdir, smi)
+        print(f"phase 7: {time.perf_counter() - t_start:.1f} s")
+        print("parallel launches, all ranks: " + ", ".join(
+            f"{k} {sum(c[k] for c in parallel.values())}" for k in (
+                "vq_assign", "group_norm_coeffs", "group_norm_apply", "group_norm_backward")))
         int8 = int8_serving_paths(dev, workdir, ckpt, uncond_ckpt, smi)
         print(f"phase 10: {time.perf_counter() - t_start:.1f} s")
         for k in kernels:
@@ -4173,4 +4326,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        Launch.stop_all()  # no launch outlives a failed phase
+    sys.exit(code)

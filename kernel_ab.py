@@ -6,10 +6,13 @@ versions can be compared in one call on one card:
     python3 kernel_ab.py [TREE] [--only SECTION] [--reference OTHER_TREE]
 
 TREE is the root of a checkout (default: here); SECTION one of vq,
-groupnorm, backward, resblock, int8 (default: all).
+groupnorm, backward, resblock, int8, int8call (default: all).
 
 To compare a change with its parent, unpack the parent into a directory and
-run parent, change, change, parent in one command. Each entry point is
+run parent, change, change, parent in one command, or pass it as
+``--reference``: its package is then loaded beside this tree's under another
+name and, in the groupnorm and int8 sections, timed in the same process in
+turns (reference, this tree, this tree, reference). Each entry point is
 printed beside one PyTorch call that computes the same work, with:
 
 - device ms: the mean over a CUDA graph of ITERS calls, replayed, so host
@@ -26,7 +29,8 @@ codebook (with each code tile the tree's kernel offers), against
 and bfloat16, against ``var_mean``: the group (mean, var), and the
 statistics folded with the affine and a FiLM into the apply kernel's
 (mean, a, b) (``group_norm_coeffs``, or in a tree without it,
-``fold_affine`` of ``group_norm_stats``); the fused ResBlock pair at
+``fold_affine`` of ``group_norm_stats``), with ``--reference`` OTHER_TREE's
+beside them; the fused ResBlock pair at
 [16, 64, 64000], 64 -> 64 with FiLM, dilation 2, in float32 and bfloat16:
 ``fused_resblock_stats``, ``fused_resblock_apply`` (called through the
 tree's own ``_norm_in_affine``, ``_conv_weight`` and ``_norm_mid_affine``)
@@ -39,7 +43,15 @@ forward's statistics where the tree saves them; else, as the older tree
 did, after a statistics launch) and the wrapper alone (statistics
 included), against ``native_group_norm_backward`` (dx; no FiLM, no GELU),
 and in a tree with ``bwd_route`` the cluster route at each cluster size
-that fits. The int8 serving path at [16, 64, 64000]: ``conv1d_int8`` 64 ->
+that fits. The int8 serving path: the int8 GroupNorm statistics
+(``group_norm_coeffs_int8``) at [16, 64, 64000] with a per-tensor scale and
+at [16, 128, 64000] with a per-channel one (two halves 9x apart), with
+``--reference`` OTHER_TREE's kernel in turns beside it and the largest
+relative difference |mine - theirs| / |theirs| between the two trees'
+(mean, a, b); one whole unet64 predictor call (seeded weights, batch 16 x
+64000, bf16 and f32) with int8 activations at T >= 16000 beside the float
+call (int8call; with ``--reference`` OTHER_TREE's model on the same
+weights in turns); at [16, 64, 64000], ``conv1d_int8`` 64 ->
 64, 3 taps, dilation 2, f32 and bf16 out, and each quantize site in f32
 and bf16 (the GroupNorm apply on int8 codes, on a float input with FiLM,
 the residual add with an int8 and a float skip), by the tree's unfused
@@ -62,7 +74,7 @@ import torch
 ITERS = 50
 PAIR_ITERS = 10  # the pair's calls take ~1 ms and a [16, 64, 64000] output each
 BWD_ITERS = 20   # each backward call writes a [16, 32, 64000] dx
-SECTIONS = ("vq", "groupnorm", "backward", "resblock", "int8")
+SECTIONS = ("vq", "groupnorm", "backward", "resblock", "int8", "int8call")
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -225,7 +237,8 @@ def load_tree_as(tree: str, alias: str):
     spec.loader.exec_module(module)
     importlib.import_module(alias + ".ops.cuda_build").build_all()
     return (importlib.import_module(alias + ".ops.qact"),
-            importlib.import_module(alias + ".ops.group_norm"))
+            importlib.import_module(alias + ".ops.group_norm"),
+            importlib.import_module(alias + ".diffusion_model").DiffusionModel)
 
 
 def int8_routes(qact, gn, dtype, dev, seed: int):
@@ -263,10 +276,55 @@ def int8_routes(qact, gn, dtype, dev, seed: int):
     }
 
 
+def int8_stats_inputs(dev, c: int, per_channel: bool, seed: int):
+    """Codes [16, c, 64000], their scale (per-tensor, or per-channel: two
+    halves 9x apart) and an affine, made in plain arithmetic from ``seed``
+    so that two trees see the same bits."""
+    n, t = 16, 64000
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, c, t, generator=gen, device=dev) + 0.5
+    parts = (x[:, :c // 2], 9.0 * x[:, c // 2:]) if per_channel else (x,)
+    codes, scales = [], []
+    for part in parts:
+        scale = torch.clamp(part.abs().amax(), min=1e-12) / 127.0
+        codes.append(torch.round(part / scale).clamp_(-127, 127).to(torch.int8))
+        scales.append(scale.expand(part.shape[1]))
+    q = torch.cat(codes, dim=1).contiguous()
+    scale = torch.cat(scales).contiguous() if per_channel else scales[0][0].clone()
+    w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    b = 0.2 * torch.randn(c, generator=gen, device=dev)
+    return q, scale, w, b
+
+
+def time_int8_stats(label: str, gn, dev, reference) -> None:
+    """The int8 GroupNorm statistics in both scale modes, with the
+    reference tree's in turns and the two trees' largest relative gap."""
+    trees = [(label, gn)]
+    if reference is not None:
+        ref = ("the reference tree", reference[1])
+        trees = [ref, trees[0], trees[0], ref]
+    for c, per_channel in ((64, False), (128, True)):
+        q, scale, w, b = int8_stats_inputs(dev, c, per_channel, 17)
+        name = (f"int8 groupnorm statistics [16, {c}, 64000] "
+                f"{'per-channel' if per_channel else 'per-tensor'} scale")
+        for tree, g in trees:
+            print(f"{tree} {name}: "
+                  f"{timings(lambda: g.group_norm_coeffs_int8(q, scale, 32, w, b, 1e-5))}")
+        if reference is not None:
+            mine = gn.group_norm_coeffs_int8(q, scale, 32, w, b, 1e-5)
+            theirs = reference[1].group_norm_coeffs_int8(q, scale, 32, w, b, 1e-5)
+            gap = max(((k - p).abs() / p.abs()).max().item() for k, p in zip(mine, theirs))
+            print(f"{label} {name}: largest |this tree - reference| / |reference| of "
+                  f"(mean, a, b) {gap:.3g}")
+        del q
+        torch.cuda.empty_cache()
+
+
 def time_int8(label: str, dev, gen, reference) -> None:
     from vq_voice_swap_torch.ops import group_norm as gn
     from vq_voice_swap_torch.ops import qact
 
+    time_int8_stats(label, gn, dev, reference)
     n, c, t = 16, 64, 64000
     x = torch.randn(n, c, t, generator=gen, device=dev)
     qa = qact.quantize(x)
@@ -278,7 +336,7 @@ def time_int8(label: str, dev, gen, reference) -> None:
     del x, qa
     for dtype in (torch.float32, torch.bfloat16):
         mine = int8_routes(qact, gn, dtype, dev, 16)
-        theirs = int8_routes(*reference, dtype, dev, 16) if reference else {}
+        theirs = int8_routes(*reference[:2], dtype, dev, 16) if reference else {}
         for site, (unfused, fused) in mine.items():
             name = f"{label} quantize {site} [{n}, {c}, {t}] {str(dtype)[6:]}"
             print(f"{name} unfused: {timings(unfused, 20)}")
@@ -297,6 +355,34 @@ def time_int8(label: str, dev, gen, reference) -> None:
                 del got, want
         del mine, theirs
         torch.cuda.empty_cache()
+
+
+def time_int8_call(label: str, dev, reference) -> None:
+    """One unet64 predictor call, batch 16 x 64000, on seeded weights, in
+    bf16 and f32: with int8 activations at T >= 16000 (the sampling CLIs'
+    --act-int8 16000) and float; with a reference tree, its model on the
+    same weights in turns (reference, this tree, this tree, reference)."""
+    from vq_voice_swap_torch.diffusion_model import DiffusionModel
+
+    trees = [(label, DiffusionModel)]
+    if reference is not None:
+        ref = ("the reference tree", reference[2])
+        trees = [ref, trees[0], trees[0], ref]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(16, 64000, 1, generator=gen, device=dev)
+    ts = torch.full((16,), 0.5, device=dev)
+    for dtype in ("bfloat16", None):
+        for tree, cls in trees:
+            for min_t in (16000, 0):
+                model = cls("unet", 64, dtype=dtype, act_int8_min_t=min_t)
+                seed_weights(model, 5)
+                model = model.to(dev).eval()
+                kind = f"int8 at T >= {min_t}" if min_t else "float"
+                with torch.no_grad():
+                    print(f"{tree} unet64 predictor call [16, 64000] {dtype or 'float32'}, "
+                          f"{kind}: {timings(lambda: model.predict_eps(x, ts), 3)}")
+                del model
+                torch.cuda.empty_cache()
 
 
 def main(argv) -> int:
@@ -347,6 +433,9 @@ def main(argv) -> int:
                 t = timings(lambda: vqa.vq_assign(d, x, tile))
             print(f"{label} vq B={b} vq_assign{'' if tile is None else f' {tile} codes'}: {t}")
 
+    ref = load_tree_as(reference, "reference_port") if reference else None
+    if ref is not None:
+        print(f"{label}: reference tree {reference}")
     n, c, t, groups = 16, 64, 64000, 32
     w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
     bias = 0.2 * torch.randn(c, generator=gen, device=dev)
@@ -357,24 +446,28 @@ def main(argv) -> int:
         name = f"{label} groupnorm [{n}, {c}, {t}] {str(dtype)[6:]}"
         lib = timings(lambda: torch.var_mean(x.view(n * groups, -1), dim=1, correction=0))
         print(f"{name} var_mean: {lib}")
-        print(f"{name} group_norm_stats (mean, var): "
-              f"{timings(lambda: gn.group_norm_stats(x, groups))}")
-        if hasattr(gn, "group_norm_coeffs"):
-            coeffs = timings(lambda: gn.group_norm_coeffs(x, groups, w, bias, 1e-5, f))
-        else:
-            coeffs = timings(lambda: gn.fold_affine(*gn.group_norm_stats(x, groups), w,
-                                                    bias, 1e-5, f))
-        print(f"{name} statistics to (mean, a, b) with FiLM: {coeffs}")
+        trees = [("", gn)]
+        if ref is not None:  # in turns: reference, this tree, this tree, reference
+            trees = [(" (the reference tree)", ref[1]), ("", gn), ("", gn),
+                     (" (the reference tree)", ref[1])]
+        for tree, g in trees:
+            print(f"{name}{tree} group_norm_stats (mean, var): "
+                  f"{timings(lambda: g.group_norm_stats(x, groups))}")
+            if hasattr(g, "group_norm_coeffs"):
+                coeffs = timings(lambda: g.group_norm_coeffs(x, groups, w, bias, 1e-5, f))
+            else:
+                coeffs = timings(lambda: g.fold_affine(*g.group_norm_stats(x, groups), w,
+                                                       bias, 1e-5, f))
+            print(f"{name}{tree} statistics to (mean, a, b) with FiLM: {coeffs}")
         del x
     if "backward" in only:
         time_group_norm_backward(label, gn, dev, gen)
     if "resblock" in only:
         time_fused_resblock(label, dev, gen)
     if "int8" in only:
-        ref = load_tree_as(reference, "reference_port") if reference else None
-        if ref is not None:
-            print(f"{label} int8: reference tree {reference}")
         time_int8(label, dev, gen, ref)
+    if "int8call" in only:
+        time_int8_call(label, dev, ref)
     return 0
 
 

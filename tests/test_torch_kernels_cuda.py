@@ -1042,7 +1042,7 @@ def test_int8_group_norm_kernels_match_plain(cuda_gen, dtype, shape, groups, per
     b = torch.randn(c, generator=cuda_gen, device="cuda")
     launches = (gn.group_norm_coeffs_int8.launches, gn.group_norm_apply_int8.launches)
     coeffs = gn.group_norm_coeffs_int8(qa.q, qa.scale, groups, w, b, 1e-5)
-    want = gn.group_norm_coeffs_plain(qact.dequantize(qa), groups, w, b, 1e-5)
+    want = gn.group_norm_coeffs_int8_plain(qa.q, qa.scale, groups, w, b, 1e-5)
     for k, p in zip(coeffs, want):
         torch.testing.assert_close(k, p, atol=1e-5, rtol=1e-4)
     got = gn.group_norm_apply_int8(qa.q, qa.scale, *want, use_gelu, dtype).float()
@@ -1056,6 +1056,85 @@ def test_int8_group_norm_kernels_match_plain(cuda_gen, dtype, shape, groups, per
                                                            else 2e-2)
     assert gn.group_norm_coeffs_int8.launches == launches[0] + 2
     assert gn.group_norm_apply_int8.launches == launches[1] + 2
+
+
+def _int8_stats(q, scale, groups, w, b, slices=None):
+    """The int8 statistics kernel's (mean, a, b, group mean, group var),
+    its span cut into ``slices`` blocks (None: the wrapper's choice)."""
+    if slices is None:
+        return gn.group_norm_coeffs_int8(q, scale, groups, w, b, 1e-5, stats=True)
+    n, c, _ = q.shape
+    out = torch.empty((3, n, c), dtype=torch.float32, device=q.device)
+    group = torch.empty((2, n, groups), dtype=torch.float32, device=q.device)
+    gn._launch_stats(q, groups, out[0], out[1], out[2], out.stride(1), w, b, 1e-5, None, group,
+                     scale, slices)
+    return (*out, *group)
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in ulps of want rounded to float32."""
+    w32 = want.float().abs()
+    ulp = torch.nextafter(w32, torch.full_like(w32, float("inf"))) - w32
+    return ((got.double() - want.double()).abs() / ulp.double()).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [None, 1, 7, gn.STATS_MAX_SLICES])
+@pytest.mark.parametrize("shape,groups,per_channel", [
+    ((2, 64, 3008), 32, False), ((2, 64, 3001), 32, False), ((2, 128, 1008), 32, True),
+    ((3, 20, 333), 4, True)], ids=["per_tensor", "per_tensor_byte_loads", "per_channel",
+                                   "per_channel_byte_loads"])
+def test_int8_stats_kernel_matches_its_plain_version(cuda_gen, shape, groups, per_channel,
+                                                     slices):
+    """The int8 statistics kernel against group_norm_coeffs_int8_plain at
+    several slice counts, on the 16-byte and the one-code-a-load paths:
+    with one scale the group mean and var bit-equal (exact integer sums,
+    the same float64 steps); with one a channel within one float32 ulp;
+    a, b within 1e-6 relative (rsqrtf against torch.rsqrt)."""
+    qact = _qact()
+    n, c, t = shape
+    x = torch.randn(shape, generator=cuda_gen, device="cuda") + 0.5
+    if per_channel:
+        qa = qact.qact_concat(qact.quantize(x[:, :c // 2].contiguous()),
+                              qact.quantize(9.0 * x[:, c // 2:].contiguous()))
+    else:
+        qa = qact.quantize(x)
+    w = torch.rand(c, generator=cuda_gen, device="cuda") + 0.5
+    b = torch.randn(c, generator=cuda_gen, device="cuda")
+    got = _int8_stats(qa.q, qa.scale, groups, w, b, slices)
+    want = gn.group_norm_coeffs_int8_plain(qa.q, qa.scale, groups, w, b, 1e-5, True)
+    torch.cuda.synchronize()
+    for k, p in zip(got[3:], want[3:]):
+        if per_channel:
+            assert _ulps(k, p) <= 1.0
+        else:
+            assert torch.equal(k, p)
+    assert torch.equal(got[0], want[0]) or per_channel
+    for k, p in zip(got[:3], want[:3]):
+        assert ((k - p).abs() / p.abs().clamp(min=1e-30)).max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_int8_stats_kernel_above_2_pow_24(cuda_gen):
+    """One group of 4 x 4300000 = 17.2 M codes, all +-127, so that the sum
+    of squares passes 2^32 (the 64-bit fold): bit-equal to the plain
+    version, the same bits on a second run, and within one float32 ulp of
+    float64 statistics of the dequantized codes."""
+    shape = (1, 4, 4_300_000)
+    q = (torch.randint(0, 2, shape, generator=cuda_gen, device="cuda") * 254 - 127).to(torch.int8)
+    scale = torch.tensor(0.0123, device="cuda")
+    w = torch.rand(4, generator=cuda_gen, device="cuda") + 0.5
+    b = torch.randn(4, generator=cuda_gen, device="cuda")
+    got = gn.group_norm_coeffs_int8(q, scale, 1, w, b, 1e-5, stats=True)
+    again = gn.group_norm_coeffs_int8(q, scale, 1, w, b, 1e-5, stats=True)
+    want = gn.group_norm_coeffs_int8_plain(q, scale, 1, w, b, 1e-5, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    x64 = q.double().reshape(1, 1, -1) * scale.double()
+    mean64 = x64.mean(dim=-1)
+    var64 = torch.square(x64 - mean64[..., None]).mean(dim=-1)
+    assert _ulps(got[3], mean64) <= 1.0 and _ulps(got[4], var64) <= 1.0
 
 
 def _fused_site(qact, site, dtype, shape, gen):

@@ -184,6 +184,61 @@ def test_qact_group_norm(use_gelu):
     np.testing.assert_allclose(ntc(got), want, rtol=0, atol=1e-5)
 
 
+def _int8_stats_case(kind: str):
+    """(codes, scale, groups) of one int8 statistics case, seeded."""
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy((2.0 * rng.randn(2, 16, 48) + 0.5).astype(np.float32))
+    if kind == "per_channel":  # a channel concat of two scales ~9x apart
+        qa = qact.qact_concat(qact.quantize(x[:, :8].contiguous()),
+                              qact.quantize(9.0 * x[:, 8:].contiguous()))
+        return qa.q, qa.scale, 4
+    if kind == "mean_100x_spread":
+        qa = qact.quantize(x[:, :, :40] / 2.0 + 100.0)
+        return qa.q, qa.scale, 4
+    qa = qact.quantize(x)
+    q = qa.q.clone()
+    if kind == "at_127":  # group 1 of sample 0 all +-127
+        signs = np.where(rng.rand(4, 48) < 0.6, 127, -127).astype(np.int8)
+        q[0, 4:8] = torch.from_numpy(signs)
+    return q, qa.scale, 4
+
+
+@pytest.mark.parametrize("kind", ["per_tensor", "per_channel", "at_127", "mean_100x_spread"])
+def test_group_norm_coeffs_int8_plain_within_one_ulp_of_float64(kind):
+    """The int8 statistics' plain version (exact integer sums, JAX's
+    one-pass formula in float64) against float64 two-pass statistics of the
+    dequantized codes: mean and var within one float32 ulp; the
+    coefficients are ``fold_affine`` of them."""
+    q, scale, groups = _int8_stats_case(kind)
+    n, c, _ = q.shape
+    x = q.double() * (scale.double() if scale.ndim == 0 else scale.double()[:, None])
+    xg = x.reshape(n, groups, -1)
+    mean64 = xg.mean(dim=-1)
+    var64 = torch.square(xg - mean64[..., None]).mean(dim=-1)
+    w = torch.from_numpy(np.linspace(0.5, 1.5, c, dtype=np.float32))
+    b = torch.from_numpy(np.linspace(-0.2, 0.2, c, dtype=np.float32))
+    *coeffs, mean, var = gn.group_norm_coeffs_int8_plain(q, scale, groups, w, b, 1e-5, True)
+    assert mean.dtype == var.dtype == torch.float32
+    for got, want in ((mean, mean64), (var, var64)):
+        ulp = np.spacing(np.abs(want.float().numpy()))
+        assert np.all(np.abs(got.double().numpy() - want.numpy()) <= ulp), (kind, got, want)
+    for got, want in zip(coeffs, gn.fold_affine(mean, var, w, b, 1e-5)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("per_channel", [False, True], ids=["per_tensor", "per_channel"])
+def test_group_norm_coeffs_int8_takes_the_plain_version_on_cpu(per_channel):
+    q, scale, groups = _int8_stats_case("per_channel" if per_channel else "per_tensor")
+    w = torch.from_numpy(np.linspace(0.5, 1.5, q.shape[1], dtype=np.float32))
+    b = torch.zeros(q.shape[1])
+    launches = gn.group_norm_coeffs_int8.launches
+    got = gn.group_norm_coeffs_int8(q, scale, groups, w, b, 1e-5, stats=True)
+    want = gn.group_norm_coeffs_int8_plain(q, scale, groups, w, b, 1e-5, True)
+    assert len(got) == 5 and all(torch.equal(g, p) for g, p in zip(got, want))
+    assert len(gn.group_norm_coeffs_int8(q, scale, groups, w, b, 1e-5)) == 3
+    assert gn.group_norm_coeffs_int8.launches == launches
+
+
 # ------------------------------------------------------------- ResBlock
 
 

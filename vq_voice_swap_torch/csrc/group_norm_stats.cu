@@ -40,11 +40,24 @@
 //   own dtype through a row stride, so the chunks of a [N, 2C] projection
 //   need no copy; outputs go through a row stride, so several inputs can
 //   fill the column slices of one [N, Cin] result.
-// - int8 input (the int8 serving path, ops/qact.py::qact_group_norm): x
-//   holds activation codes, and each value is code * scale[c] (one float32
-//   scale for the tensor, or one a channel after a channel concat),
-//   dequantized in registers as it is loaded, 16 codes a 16-byte load; the
-//   statistics, the merge and the fold are the float path's.
+// - int8 input (the int8 serving path, ops/qact.py::qact_group_norm): a
+//   kernel of its own. x holds activation codes, each value code * scale[c]
+//   (one float32 scale for the tensor, or one a channel after a channel
+//   concat). No code is converted or scaled: each 32-bit word of a 16-byte
+//   load goes into two __dp4a (the sum and the sum of squares of its four
+//   codes), INT8_LOADS loads in flight a thread, and the int32 sums of one
+//   pass are folded into 64-bit ones, exact for any span. With one scale
+//   the span is one row; with one a channel each channel's T codes are a
+//   row, summed apart (a block walks the rows of its slice in order; the
+//   wrapper takes 16-byte loads there only where T is a multiple of 16, so
+//   no load straddles two rows, and one code a load otherwise).
+//   Integer sums are exact whatever their order, so blocks and slices add
+//   them plainly; the last block takes the rows in channel order:
+//     mean = sum_c s_c S1_c / n,  var = max(sum_c s_c^2 S2_c / n - mean^2, 0)
+//   in double with explicit rounding (no contraction into an FMA), JAX's
+//   one-pass formula (qact.py:138-142) on exact sums, so no cancellation;
+//   mean and var are rounded to float once and folded as the float path's.
+//   ops/group_norm.py::group_norm_coeffs_int8_plain is the same arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,24 +120,8 @@ __device__ __forceinline__ void load_values<__nv_bfloat16, 8>(const __nv_bfloat1
 }
 
 template <>
-__device__ __forceinline__ void load_values<int8_t, 16>(const int8_t* p, long long i, float* out) {
-  const int4 q = __ldg(reinterpret_cast<const int4*>(p) + i);
-  const int w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) out[4 * j + b] = static_cast<float>(static_cast<int8_t>(w[j] >> (8 * b)));
-  }
-}
-
-template <>
 __device__ __forceinline__ void load_values<float, 1>(const float* p, long long i, float* out) {
   out[0] = __ldg(p + i);
-}
-
-template <>
-__device__ __forceinline__ void load_values<int8_t, 1>(const int8_t* p, long long i, float* out) {
-  out[0] = static_cast<float>(__ldg(p + i));
 }
 
 template <>
@@ -143,8 +140,9 @@ struct Args {
   int slices;          // blocks per span
   long long chunk;     // span elements per slice, a multiple of 8
   int groups, cpg;     // G and C/G
-  float* part;         // [spans, slices, 4] block partials (slices > 1): the
-                       // count as a double, then mean and M2
+  float* part;         // block partials (slices > 1), 16 bytes each: float
+                       // [spans, slices] of the count as a double, then mean
+                       // and M2; int8 [spans, rows, slices] of (S1, S2) int64
   int* tickets;        // [spans] zeroed counters
   const float* weight; // [C] or null: write (mean, var) instead
   const float* bias;
@@ -161,22 +159,46 @@ struct Args {
   long long spans;     // N * G
   const float* scale;  // int8 input: [1] or [C] float32 dequantization scales
   int scale_stride;    //   0 (one scale) or 1 (one a channel)
-  long long t;         //   T, to find an element's channel
+  long long t;         //   T, a channel's row of codes
 };
 
-// Dequantize V codes of span `span_id` that start at span element i0, in
-// place: each times its channel's scale.
-__device__ __forceinline__ void dequantize(float* vals, int V, const Args& args, int span_id,
-                                           long long i0) {
-  const int g = span_id % args.groups;
-  long long c = i0 / args.t;
-  long long next = (c + 1) * args.t;
-  for (int e = 0; e < V; ++e) {
-    while (i0 + e >= next) {
-      ++c;
-      next += args.t;
+// The last block's epilogue. Thread 0 brings the span's (mean, var) and
+// writes them, or, beside the coefficients, the group (mean, var) when
+// out_group asks for them; then the block writes each channel's folded
+// (mean, a, b). `shared` is two floats of the block's shared memory.
+__device__ __forceinline__ void finish(const Args& args, int span_id, float mean, float var,
+                                       float* shared) {
+  if (threadIdx.x == 0) {
+    if (args.weight == nullptr) {
+      args.out_mean[span_id] = mean;
+      args.out_a[span_id] = var;
+    } else if (args.out_group != nullptr) {
+      args.out_group[span_id] = mean;
+      args.out_group[args.spans + span_id] = var;
     }
-    vals[e] = __fmul_rn(vals[e], args.scale[(g * args.cpg + c) * args.scale_stride]);
+    shared[0] = mean;
+    shared[1] = rsqrtf(var + args.eps);
+  }
+  if (args.weight == nullptr) return;
+  __syncthreads();
+
+  const int n = span_id / args.groups;
+  const int g = span_id - n * args.groups;
+  const float group_mean = shared[0], rstd = shared[1];
+  for (int c = threadIdx.x; c < args.cpg; c += THREADS) {
+    const int ch = g * args.cpg + c;
+    float a = __fmul_rn(rstd, args.weight[ch]);
+    float b = args.bias[ch];
+    if (args.film_a != nullptr) {
+      const long long f = n * args.film_ld + ch;
+      const float s = __fadd_rn(load_film(args.film_a, args.film_bf16, f), 1.0f);
+      a = __fmul_rn(a, s);
+      b = __fadd_rn(__fmul_rn(b, s), load_film(args.film_b, args.film_bf16, f));
+    }
+    const long long o = n * args.out_ld + ch;
+    args.out_mean[o] = group_mean;
+    args.out_a[o] = a;
+    args.out_b[o] = b;
   }
 }
 
@@ -187,7 +209,7 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
   __shared__ Stat warp_stat[WARPS];
   __shared__ Stat slice_stat[MAX_SLICES];
   __shared__ int is_last;
-  __shared__ float s_mean, s_rstd;
+  __shared__ float s_finish[2];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int span_id = blockIdx.x / args.slices;
@@ -206,7 +228,6 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
       const long long v = v0 + j * THREADS + tid;
       if (v < nvec) {
         load_values<T, V>(p, v, vals + j * V);
-        if constexpr (sizeof(T) == 1) dequantize(vals + j * V, V, args, span_id, start + v * V);
         ++valid;
       } else {
 #pragma unroll
@@ -277,45 +298,209 @@ group_norm_stats_kernel(const T* __restrict__ x, Args args) {
     }
   }
 
-  if (tid == 0) {
-    const float mean = acc.mean;
-    const float var = acc.m2 / static_cast<float>(acc.n);
-    if (args.weight == nullptr) {
-      args.out_mean[span_id] = mean;
-      args.out_a[span_id] = var;
-    } else if (args.out_group != nullptr) {
-      args.out_group[span_id] = mean;
-      args.out_group[args.spans + span_id] = var;
-    }
-    s_mean = mean;
-    s_rstd = rsqrtf(var + args.eps);
-  }
-  if (args.weight == nullptr) return;
-  __syncthreads();
+  finish(args, span_id, acc.mean, acc.m2 / static_cast<float>(acc.n), s_finish);
+}
 
-  const int n = span_id / args.groups;
-  const int g = span_id - n * args.groups;
-  const float mean = s_mean, rstd = s_rstd;
-  for (int c = tid; c < args.cpg; c += THREADS) {
-    const int ch = g * args.cpg + c;
-    float a = __fmul_rn(rstd, args.weight[ch]);
-    float b = args.bias[ch];
-    if (args.film_a != nullptr) {
-      const long long f = n * args.film_ld + ch;
-      const float s = __fadd_rn(load_film(args.film_a, args.film_bf16, f), 1.0f);
-      a = __fmul_rn(a, s);
-      b = __fadd_rn(__fmul_rn(b, s), load_film(args.film_b, args.film_bf16, f));
+// ------------------------------------------------------------------- int8
+
+constexpr int INT8_LOADS = 8;  // 16-byte loads a thread issues before it sums any
+constexpr int INT8_BYTE_LOADS = 32;  // the same, one code a load
+
+// This thread's share of the sums of the n codes at p: s1 += sum q,
+// s2 += sum q^2. V = 16: p 16-byte aligned and n a multiple of 16, two
+// __dp4a a 32-bit word; V = 1: one code a load. A pass's int32 sums (at
+// most 128 codes: |a1| <= 127 * 128, a2 <= 16129 * 128) go into the 64-bit
+// ones before the next pass.
+template <int V>
+__device__ __forceinline__ void sum_codes(const int8_t* p, long long n, long long& s1,
+                                          long long& s2);
+
+template <>
+__device__ __forceinline__ void sum_codes<16>(const int8_t* p, long long n, long long& s1,
+                                              long long& s2) {
+  const int4* p4 = reinterpret_cast<const int4*>(p);
+  const long long nvec = n / 16;
+  for (long long v0 = threadIdx.x; v0 < nvec; v0 += (long long)THREADS * INT8_LOADS) {
+    int4 q[INT8_LOADS];
+#pragma unroll
+    for (int j = 0; j < INT8_LOADS; ++j) {
+      const long long v = v0 + j * THREADS;
+      q[j] = v < nvec ? __ldg(p4 + v) : make_int4(0, 0, 0, 0);
     }
-    const long long o = n * args.out_ld + ch;
-    args.out_mean[o] = mean;
-    args.out_a[o] = a;
-    args.out_b[o] = b;
+    int a1 = 0, a2 = 0;
+#pragma unroll
+    for (int j = 0; j < INT8_LOADS; ++j) {
+      const int w[4] = {q[j].x, q[j].y, q[j].z, q[j].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        a1 = __dp4a(w[k], 0x01010101, a1);
+        a2 = __dp4a(w[k], w[k], a2);
+      }
+    }
+    s1 += a1;
+    s2 += a2;
   }
+}
+
+template <>
+__device__ __forceinline__ void sum_codes<1>(const int8_t* p, long long n, long long& s1,
+                                             long long& s2) {
+  for (long long v0 = threadIdx.x; v0 < n; v0 += (long long)THREADS * INT8_BYTE_LOADS) {
+    int q[INT8_BYTE_LOADS];
+#pragma unroll
+    for (int j = 0; j < INT8_BYTE_LOADS; ++j) {
+      const long long v = v0 + j * THREADS;
+      q[j] = v < n ? __ldg(p + v) : 0;
+    }
+    int a1 = 0, a2 = 0;
+#pragma unroll
+    for (int j = 0; j < INT8_BYTE_LOADS; ++j) {
+      a1 += q[j];
+      a2 += q[j] * q[j];
+    }
+    s1 += a1;
+    s2 += a2;
+  }
+}
+
+__device__ __forceinline__ void warp_sum(long long& s1, long long& s2, int width = 32) {
+#pragma unroll
+  for (int o = width / 2; o > 0; o >>= 1) {
+    s1 += __shfl_down_sync(0xffffffffu, s1, o);
+    s2 += __shfl_down_sync(0xffffffffu, s2, o);
+  }
+}
+
+// The block's sums of (s1, s2), in thread 0's. buf: 2 * WARPS of the
+// block's shared memory, which the block must not write again before its
+// next __syncthreads.
+__device__ __forceinline__ void block_sum(long long& s1, long long& s2, long long* buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_sum(s1, s2);
+  if (lane == 0) {
+    buf[warp] = s1;
+    buf[WARPS + warp] = s2;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    s1 = lane < WARPS ? buf[lane] : 0;
+    s2 = lane < WARPS ? buf[WARPS + lane] : 0;
+    warp_sum(s1, s2, WARPS);
+  }
+}
+
+// m1 += s S1 and m2 += s^2 S2 in double, each step rounded as written (no
+// FMA): group_norm_coeffs_int8_plain's arithmetic, step for step.
+__device__ __forceinline__ void add_row(double& m1, double& m2, float scale, long long s1,
+                                        long long s2) {
+  const double s = scale;
+  m1 = __dadd_rn(m1, __dmul_rn(s, __ll2double_rn(s1)));
+  m2 = __dadd_rn(m2, __dmul_rn(__dmul_rn(s, s), __ll2double_rn(s2)));
+}
+
+template <int V>
+__global__ void __launch_bounds__(THREADS, 4)
+group_norm_stats_int8_kernel(const int8_t* __restrict__ x, Args args) {
+  __shared__ long long row_buf[2][2 * WARPS];  // block_sum's, by row parity
+  __shared__ int is_last;
+  __shared__ float s_finish[2];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span_id = blockIdx.x / args.slices;
+  const int slice = blockIdx.x - span_id * args.slices;
+  const long long start = slice * args.chunk;
+  const long long end = min(args.span, start + args.chunk);
+  const int8_t* p = x + span_id * args.span;
+  // One scale: the span is one row. One a channel: each channel's T codes.
+  const int rows = args.scale_stride ? args.cpg : 1;
+  const long long row_len = args.scale_stride ? args.t : args.span;
+  const float* scale = args.scale + (span_id % args.groups) * args.cpg * args.scale_stride;
+  // This span's [rows, slices] partials (S1, S2): each slice's share of a row.
+  long long* part =
+      reinterpret_cast<long long*>(args.part) + span_id * (long long)rows * args.slices * 2;
+
+  double m1 = 0.0, m2 = 0.0;  // thread 0: sum_c s_c S1_c and sum_c s_c^2 S2_c
+  if (start < end) {
+    const int last = static_cast<int>((end - 1) / row_len);
+    for (int r = static_cast<int>(start / row_len), k = 0; r <= last; ++r, ++k) {
+      const long long lo = max(start, r * row_len), hi = min(end, (r + 1) * row_len);
+      long long s1 = 0, s2 = 0;
+      sum_codes<V>(p + lo, hi - lo, s1, s2);
+      block_sum(s1, s2, row_buf[k & 1]);
+      if (tid == 0) {
+        if (args.slices > 1) {
+          long long* e = part + ((long long)r * args.slices + slice) * 2;
+          e[0] = s1;
+          e[1] = s2;
+        } else {
+          add_row(m1, m2, scale[r], s1, s2);
+        }
+      }
+    }
+  }
+
+  if (args.slices > 1) {
+    // Publish this slice's partials; the last block of the span adds them.
+    if (tid == 0) {
+      __threadfence();
+      const int prev = atomicAdd(args.tickets + span_id, 1);
+      is_last = prev == args.slices - 1;
+      if (is_last) args.tickets[span_id] = 0;
+    }
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    // A warp a row: its total over the slices that hold a share of it,
+    // written over the first one's partial; then thread 0 takes the rows
+    // in channel order.
+    for (int r = warp; r < rows; r += WARPS) {
+      const int first = static_cast<int>(r * row_len / args.chunk);
+      const int last = static_cast<int>(
+          min((long long)args.slices - 1, ((r + 1) * row_len - 1) / args.chunk));
+      long long s1 = 0, s2 = 0;
+      for (int s = first + lane; s <= last; s += 32) {
+        const long long* e = part + ((long long)r * args.slices + s) * 2;
+        s1 += __ldcg(e);
+        s2 += __ldcg(e + 1);
+      }
+      warp_sum(s1, s2);
+      if (lane == 0) {
+        long long* e = part + ((long long)r * args.slices + first) * 2;
+        __stcg(e, s1);
+        __stcg(e + 1, s2);
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int r = 0; r < rows; ++r) {
+        const long long* e = part + ((long long)r * args.slices + r * row_len / args.chunk) * 2;
+        add_row(m1, m2, scale[r], __ldcg(e), __ldcg(e + 1));
+      }
+    }
+  }
+
+  // JAX's one-pass formula on the exact sums, in double; one rounding to float.
+  float mean = 0.0f, var = 0.0f;
+  if (tid == 0) {
+    const double n = static_cast<double>(args.span);
+    const double mu = __ddiv_rn(m1, n);
+    const double v = __dsub_rn(__ddiv_rn(m2, n), __dmul_rn(mu, mu));
+    mean = __double2float_rn(mu);
+    var = __double2float_rn(v > 0.0 ? v : 0.0);
+  }
+  finish(args, span_id, mean, var, s_finish);
 }
 
 template <typename T, int V>
 cudaError_t launch(const void* x, int blocks, const Args& args, cudaStream_t stream) {
   group_norm_stats_kernel<T, V><<<blocks, THREADS, 0, stream>>>(static_cast<const T*>(x), args);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_int8(const void* x, int blocks, const Args& args, cudaStream_t stream) {
+  group_norm_stats_int8_kernel<V>
+      <<<blocks, THREADS, 0, stream>>>(static_cast<const int8_t*>(x), args);
   return cudaGetLastError();
 }
 
@@ -327,9 +512,11 @@ extern "C" int group_norm_stats_max_slices() { return MAX_SLICES; }
 // x [N, C, T] contiguous, float32 (dtype 0), bfloat16 (dtype 1) or int8
 // codes (dtype 2, each value code * scale[c * scale_stride], scale float32
 // and scale_stride 0 or 1); `vec` selects 16-byte loads (x 16-byte aligned,
-// span and chunk multiples of 8, or of 16 for int8).
+// span and chunk multiples of 8; for int8 chunk a multiple of 16, and the
+// span with one scale, T with one a channel).
 // Spans = N * groups, each split into `slices` slices of `chunk` elements;
-// `part` holds spans * slices * 4 floats, 8-byte aligned, when slices > 1, `tickets` spans
+// when slices > 1, `part` holds spans * slices * 4 floats, 8-byte aligned
+// (int8 with one scale a channel: spans * C/G * slices * 4), `tickets` spans
 // zeroed ints. With `weight` (and `bias`, [C] float32): writes the folded
 // (mean, a, b) of channel c of sample n at n * out_ld + c, FiLM optional
 // (film_dtype as dtype, row stride film_ld), and, when `out_group` is not
@@ -362,7 +549,7 @@ extern "C" int group_norm_stats(int dtype, const void* x, int n, int c, int t, i
     err = vec ? launch<__nv_bfloat16, 8>(x, blocks, args, s)
               : launch<__nv_bfloat16, 1>(x, blocks, args, s);
   } else {
-    err = vec ? launch<int8_t, 16>(x, blocks, args, s) : launch<int8_t, 1>(x, blocks, args, s);
+    err = vec ? launch_int8<16>(x, blocks, args, s) : launch_int8<1>(x, blocks, args, s);
   }
   return static_cast<int>(err);
 }

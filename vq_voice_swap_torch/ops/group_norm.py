@@ -22,10 +22,14 @@ Counterpart of ``vq_voice_swap_tpu/ops/fused_norm.py``:
 
 So one GroupNorm, with or without FiLM, is two launches on the card and no
 torch op between them. ``group_norm_coeffs_int8`` and
-``group_norm_apply_int8`` are the same two kernels reading int8 activation
-codes and their float32 scales (one, or one a channel; ``ops/qact.py``),
-dequantized in registers: the int8 serving path's GroupNorm (no FiLM),
-whose output is in the compute dtype. Both kernels are memory-bound
+``group_norm_apply_int8`` read int8 activation codes and their float32
+scales (one, or one a channel; ``ops/qact.py``): the int8 serving path's
+GroupNorm (no FiLM), whose output is in the compute dtype. The first is
+the statistics kernel's int8 mode, a kernel of its own: exact integer sums
+of the codes and of their squares, the scale applied once a channel, and
+JAX's one-pass E[x^2] - mean^2 in float64 on those sums
+(``group_norm_coeffs_int8_plain`` is the same arithmetic); the second, the
+apply kernel dequantizing in registers. Both kernels are memory-bound
 streaming passes: the bound is x read once (statistics), and x read once
 plus y written once (apply), at the card's memory rate.
 
@@ -84,6 +88,7 @@ __all__ = [
     "group_norm_stats",
     "group_norm_apply",
     "group_norm_coeffs_int8",
+    "group_norm_coeffs_int8_plain",
     "group_norm_apply_int8",
     "dequantize_codes",
     "group_stats_plain",
@@ -386,6 +391,46 @@ def group_norm_coeffs_plain(
     return (*coeffs, *group) if stats else coeffs
 
 
+def group_norm_coeffs_int8_plain(
+    q: torch.Tensor,
+    scale: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    stats: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """``group_norm_coeffs_int8`` in plain PyTorch, the kernel's arithmetic
+    step by step: exact int64 sums S1 = sum q and S2 = sum q^2 of each
+    channel's row of codes (of the group's span with one scale); in
+    float64, a channel at a time in channel order, m1 = sum_c s_c S1_c and
+    m2 = sum_c s_c^2 S2_c; mean = m1 / n, var = max(m2 / n - mean^2, 0)
+    (JAX's one-pass formula on exact sums: no cancellation), each rounded
+    to float32 once; then ``fold_affine``. With ``stats``, the group
+    (mean, var) [N, G] follow."""
+    n, c, t = q.shape
+    cpg = c // num_groups
+    per_channel = scale.ndim == 1
+    rows = q.view(n, num_groups, cpg, t) if per_channel else q.view(n, num_groups, 1, cpg * t)
+    s1 = rows.sum(dim=-1, dtype=torch.int64).double()
+    s2 = rows.int().square().sum(dim=-1, dtype=torch.int64).double()
+    s = scale.double().view(1, num_groups, cpg) if per_channel else scale.double().view(1, 1, 1)
+    m1 = torch.zeros((n, num_groups), dtype=torch.float64, device=q.device)
+    m2 = torch.zeros_like(m1)
+    for k in range(rows.shape[2]):
+        sk = s[..., k]
+        m1 = m1 + sk * s1[..., k]
+        m2 = m2 + (sk * sk) * s2[..., k]
+    # A tensor divisor: torch on CUDA multiplies by the reciprocal of a
+    # Python number, which rounds otherwise than the kernel's division.
+    count = m1.new_full((), cpg * t)
+    mean = m1 / count
+    var = (m2 / count - mean * mean).clamp(min=0.0)
+    group = mean.float(), var.float()
+    coeffs = fold_affine(*group, weight, bias, eps)
+    return (*coeffs, *group) if stats else coeffs
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -520,28 +565,34 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _launch_stats(x, num_groups, out_mean, out_a, out_b, out_ld,
                   weight=None, bias=None, eps=0.0, film: Film = None, out_group=None,
-                  scale=None) -> None:
+                  scale=None, slices=None) -> None:
     """One launch of the statistics kernel (see csrc/group_norm_stats.cu);
-    ``scale`` marks x as int8 codes."""
+    ``scale`` marks x as int8 codes. ``slices`` (1 to STATS_MAX_SLICES)
+    overrides the blocks a span takes, which otherwise fill the card."""
     n, c, t = x.shape
     spans, span = n * num_groups, (c // num_groups) * t
-    target = sm_count(x.device) * STATS_BLOCKS_PER_SM
-    slices = max(1, min(target // max(spans, 1), -(-span // STATS_TILE), STATS_MAX_SLICES))
+    if slices is None:
+        target = sm_count(x.device) * STATS_BLOCKS_PER_SM
+        slices = max(1, min(target // max(spans, 1), -(-span // STATS_TILE), STATS_MAX_SLICES))
     chunk = -(-span // slices)
     step = 16 if scale is not None else 8  # a slice starts on a 16-byte load
     chunk = -(-chunk // step) * step
-    # 16-byte loads need the span, and so every slice, to start 16-byte aligned.
-    vec = span % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
+    per_channel = scale is not None and scale.ndim == 1
+    # 16-byte loads need the span, and so every slice, to start 16-byte
+    # aligned; with one scale a channel, no load may straddle two channels.
+    row = t if per_channel else span
+    vec = row % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
     part = None
-    if slices > 1:
-        part = torch.empty(spans * slices * 4, dtype=torch.float32, device=x.device)
+    if slices > 1:  # 16 bytes a partial; int8 with one scale a channel, one a channel
+        rows = c // num_groups if per_channel else 1
+        part = torch.empty(spans * rows * slices * 4, dtype=torch.float32, device=x.device)
     ca = cb = None
     film_code, film_ld = 0, 0
     if film is not None:
         ca, cb = film
         film_code, film_ld = _DTYPE_CODE[ca.dtype], ca.stride(0)
     dtype_code = 2 if scale is not None else _DTYPE_CODE[x.dtype]
-    scale_stride = 0 if scale is None or scale.ndim == 0 else 1
+    scale_stride = int(per_channel)
     stream = torch.cuda.current_stream(x.device)
     with torch.cuda.device(x.device):
         err = _stats_library().group_norm_stats(
@@ -656,21 +707,28 @@ def group_norm_coeffs_int8(
     weight: torch.Tensor,
     bias: torch.Tensor,
     eps: float,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    stats: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """``group_norm_coeffs`` (no FiLM) of the values q * scale of int8
     codes q [N, C, T] and a float32 scale () or (C,): one launch of the
-    statistics kernel's int8 mode on the card, the codes dequantized in
-    registers."""
+    statistics kernel's int8 mode on the card (exact integer sums of the
+    codes, the scale applied once a channel; ``group_norm_coeffs_int8_plain``
+    is its arithmetic). With ``stats``, the group (mean, var) [N, G] follow."""
     check_codes(q, scale)
     _check_groups(q, num_groups)
     _check_coeffs(q, weight, bias, None, None)
     if q.device.type == "cpu":
-        return group_norm_coeffs_plain(dequantize_codes(q, scale), num_groups, weight, bias,
-                                       eps)
+        return group_norm_coeffs_int8_plain(q, scale, num_groups, weight, bias, eps, stats)
     out = torch.empty((3, *q.shape[:2]), dtype=torch.float32, device=q.device)
+    group = None
+    if stats:
+        group = torch.empty((2, q.shape[0], num_groups), dtype=torch.float32, device=q.device)
     _launch_stats(q, num_groups, out[0], out[1], out[2], out.stride(1),
-                  weight.float().contiguous(), bias.float().contiguous(), eps, scale=scale)
+                  weight.float().contiguous(), bias.float().contiguous(), eps, None, group,
+                  scale)
     group_norm_coeffs_int8.launches += 1
+    if stats:
+        return out[0], out[1], out[2], group[0], group[1]
     return out[0], out[1], out[2]
 
 

@@ -61,7 +61,7 @@ import torch.nn.functional as F
 from .cuda_build import load_library
 from .group_norm import (apply_helpers, check_apply_coeffs, check_codes, dequantize_codes,
                          group_norm_apply_int8, group_norm_apply_plain,
-                         group_norm_coeffs_int8, group_norm_coeffs_plain, sm_count)
+                         group_norm_coeffs_int8, group_norm_coeffs_int8_plain, sm_count)
 from .tickets import tickets
 
 __all__ = [
@@ -161,11 +161,10 @@ def conv1d_int8_plain(
 
 def qact_group_norm_plain(qa: QAct, weight, bias, groups: int, eps: float,
                           use_gelu: bool) -> torch.Tensor:
-    """``qact_group_norm`` in plain PyTorch: the float GroupNorm's plain
-    versions on the dequantized values."""
-    xf = dequantize(qa)
-    coeffs = group_norm_coeffs_plain(xf, groups, weight, bias, eps)
-    return group_norm_apply_plain(xf, *coeffs, use_gelu).to(qa.dtype)
+    """``qact_group_norm`` in plain PyTorch: the int8 statistics' plain
+    version on the codes, then the apply's on the dequantized values."""
+    coeffs = group_norm_coeffs_int8_plain(qa.q, qa.scale, groups, weight, bias, eps)
+    return group_norm_apply_plain(dequantize(qa), *coeffs, use_gelu).to(qa.dtype)
 
 
 # ---------------------------------------------------------------- kernels
