@@ -1,0 +1,10 @@
+"""Device ms of the convolution and matmul kernels (cuDNN, cuBLAS) of the
+traced stretch, per predictor call (the encode's counted with them)."""
+
+
+def read(window):
+    tr = window.trace
+    if tr is None or not tr.units:
+        return None
+    ms = 1e3 * tr.seconds_by_class().get("conv_matmul", 0.0)
+    return ms / tr.units if ms else None
