@@ -17,6 +17,7 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
+from ..observe import span
 from .datasets import ChirpDataset, LibriSpeech, ToneDataset
 
 __all__ = ["DataLoader", "create_data_loader"]
@@ -109,7 +110,8 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                item = out_q.get()
+                with span("vvs.data.wait"):
+                    item = out_q.get()
                 if item is sentinel:
                     break
                 if isinstance(item, BaseException):

@@ -23,6 +23,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..observe import span
 from ..parallel.sequence import draw_normal, seq_row_mean
 from .schedules import Schedule
 from .warp import TimeWarp
@@ -159,19 +160,20 @@ class Diffusion:
         warp(t) - warp(t - 1/steps)."""
         x_t = x_T
         for i in range(steps):
-            t, dt = _step_time(i, steps, warp)
-            ts = torch.full(
-                (x_T.shape[0],), t, dtype=torch.float32, device=x_T.device
-            )
-            eps = predictor(x_t, ts)
-            if i == steps - 1:
-                noise = torch.zeros_like(x_t)
-            else:
-                noise = draw_normal(x_T.shape, generator, x_T.dtype, x_T.device)
-            x_t = self.ddpm_previous(
-                x_t, ts, dt, eps, noise, sigma_large=sigma_large,
-                constrain=constrain, cond_fn=cond_fn,
-            )
+            with span("vvs.step"):
+                t, dt = _step_time(i, steps, warp)
+                ts = torch.full(
+                    (x_T.shape[0],), t, dtype=torch.float32, device=x_T.device
+                )
+                eps = predictor(x_t, ts)
+                if i == steps - 1:
+                    noise = torch.zeros_like(x_t)
+                else:
+                    noise = draw_normal(x_T.shape, generator, x_T.dtype, x_T.device)
+                x_t = self.ddpm_previous(
+                    x_t, ts, dt, eps, noise, sigma_large=sigma_large,
+                    constrain=constrain, cond_fn=cond_fn,
+                )
         return x_t
 
     def ddim_previous(
@@ -222,19 +224,20 @@ class Diffusion:
         as ``ddpm_sample``."""
         x_t = x_T
         for i in range(steps):
-            t, dt = _step_time(i, steps, warp)
-            ts = torch.full(
-                (x_T.shape[0],), t, dtype=torch.float32, device=x_T.device
-            )
-            eps = predictor(x_t, ts)
-            if eta and i < steps - 1:
-                noise = draw_normal(x_T.shape, generator, x_T.dtype, x_T.device)
-            else:
-                noise = torch.zeros_like(x_t)
-            x_t = self.ddim_previous(
-                x_t, ts, dt, eps, noise, eta=eta, constrain=constrain,
-                cond_fn=cond_fn,
-            )
+            with span("vvs.step"):
+                t, dt = _step_time(i, steps, warp)
+                ts = torch.full(
+                    (x_T.shape[0],), t, dtype=torch.float32, device=x_T.device
+                )
+                eps = predictor(x_t, ts)
+                if eta and i < steps - 1:
+                    noise = draw_normal(x_T.shape, generator, x_T.dtype, x_T.device)
+                else:
+                    noise = torch.zeros_like(x_t)
+                x_t = self.ddim_previous(
+                    x_t, ts, dt, eps, noise, eta=eta, constrain=constrain,
+                    cond_fn=cond_fn,
+                )
         return x_t
 
     def dpmpp_sample(
@@ -262,34 +265,35 @@ class Diffusion:
         x = x_T
         x0_prev = lam_prev = None
         for i in range(steps):
-            ts = torch.full(
-                (x_T.shape[0],), _grid_time(i, steps, warp),
-                dtype=torch.float32, device=x_T.device,
-            )
-            ts_next = torch.full_like(ts, _grid_time(i + 1, steps, warp))
+            with span("vvs.step"):
+                ts = torch.full(
+                    (x_T.shape[0],), _grid_time(i, steps, warp),
+                    dtype=torch.float32, device=x_T.device,
+                )
+                ts_next = torch.full_like(ts, _grid_time(i + 1, steps, warp))
 
-            eps = predictor(x, ts)
-            abar_t = broadcast_to_batch(self.schedule(ts), x)
-            if cond_fn is not None:
-                eps = eps - torch.sqrt(1.0 - abar_t) * cond_fn(x, ts)
-            x0 = self.eps_to_x0(x, ts, eps)
-            if constrain:
-                x0 = _clamp_x0(x0)
+                eps = predictor(x, ts)
+                abar_t = broadcast_to_batch(self.schedule(ts), x)
+                if cond_fn is not None:
+                    eps = eps - torch.sqrt(1.0 - abar_t) * cond_fn(x, ts)
+                x0 = self.eps_to_x0(x, ts, eps)
+                if constrain:
+                    x0 = _clamp_x0(x0)
 
-            abar_n = broadcast_to_batch(self.schedule(ts_next), x)
-            alpha_t, sigma_t = torch.sqrt(abar_t), torch.sqrt(1.0 - abar_t)
-            alpha_n, sigma_n = torch.sqrt(abar_n), torch.sqrt(1.0 - abar_n)
-            exp_neg_h = (alpha_t * sigma_n) / (sigma_t * alpha_n)
-            lam_cur = 0.5 * (torch.log(abar_t) - torch.log1p(-abar_t))
+                abar_n = broadcast_to_batch(self.schedule(ts_next), x)
+                alpha_t, sigma_t = torch.sqrt(abar_t), torch.sqrt(1.0 - abar_t)
+                alpha_n, sigma_n = torch.sqrt(abar_n), torch.sqrt(1.0 - abar_n)
+                exp_neg_h = (alpha_t * sigma_n) / (sigma_t * alpha_n)
+                lam_cur = 0.5 * (torch.log(abar_t) - torch.log1p(-abar_t))
 
-            if 0 < i < steps - 1:
-                lam_next = 0.5 * (torch.log(abar_n) - torch.log1p(-abar_n))
-                r = (lam_cur - lam_prev) / (lam_next - lam_cur)
-                d = x0 + (x0 - x0_prev) * (0.5 / r)
-            else:
-                d = x0
-            x = (sigma_n / sigma_t) * x - alpha_n * (exp_neg_h - 1.0) * d
-            x0_prev, lam_prev = x0, lam_cur
+                if 0 < i < steps - 1:
+                    lam_next = 0.5 * (torch.log(abar_n) - torch.log1p(-abar_n))
+                    r = (lam_cur - lam_prev) / (lam_next - lam_cur)
+                    d = x0 + (x0 - x0_prev) * (0.5 / r)
+                else:
+                    d = x0
+                x = (sigma_n / sigma_t) * x - alpha_n * (exp_neg_h - 1.0) * d
+                x0_prev, lam_prev = x0, lam_cur
         return x
 
     # ---------------------------------------------------------------- losses

@@ -12,6 +12,7 @@ from .model_base import ModelBase, register_model
 from .models import make_predictor
 from .models.layers import Dropout, draw_keep_mask
 from .models.unet import set_remat
+from .observe import span
 
 __all__ = ["DiffusionModel", "add_labels_to_params", "label_param_paths"]
 
@@ -173,7 +174,8 @@ class DiffusionModel(ModelBase):
         dropout = None
         if train and self.dropout:
             dropout = Dropout(self.dropout, generator, dropout_masks)
-        return self.predictor(x, ts, cond=cond, labels=labels, dropout=dropout)
+        with span("vvs.predict"):
+            return self.predictor(x, ts, cond=cond, labels=labels, dropout=dropout)
 
     def losses(
         self,

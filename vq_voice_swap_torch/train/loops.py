@@ -86,7 +86,7 @@ from ..diffusion import Diffusion, make_schedule
 from ..diffusion_model import DiffusionModel
 from ..model_base import ModelBase
 from ..models.init import init_like_flax
-from ..observe import Logger, LossTracker
+from ..observe import Logger, LossTracker, span
 from ..parallel import (GradBuffer, StepSync, agree, broadcast_from_primary, cut_axes,
                         data_rank, data_size, full_tensor_tp, init_distributed, init_grid,
                         launched, rank, shard_train_state, world_size)
@@ -302,7 +302,9 @@ class TrainLoop(ABC):
         """Run one train step; fetch the metrics of the step
         --pipeline-depth steps back; save on the interval."""
         generator = step_generator(self.rng_seed, self.total_steps, self.device)
-        device_batch = self.to_device(self.prepare_batch(batch))
+        batch = self.prepare_batch(batch)
+        with span("vvs.train.stage"):
+            device_batch = self.to_device(batch)
         dispatched = time.perf_counter()
         metrics = self.train_step(device_batch, generator)
         self._queue(self.loop_steps, [metrics], dispatched)
@@ -338,7 +340,8 @@ class TrainLoop(ABC):
         its last step."""
         k_steps = len(batches)
         start = self.logger.start_step
-        staged = self.to_device({k: np.stack([b[k] for b in batches]) for k in batches[0]})
+        with span("vvs.train.stage"):
+            staged = self.to_device({k: np.stack([b[k] for b in batches]) for k in batches[0]})
         run = self.graphed_step or self.train_step
         dispatched = time.perf_counter()
         metrics = []
@@ -391,26 +394,27 @@ class TrainLoop(ABC):
         the card, since a replay can hold the host to the card's pace and
         the host then sees a completion only when the next window is
         queued."""
-        loop_steps, window, dispatched, done = self._pending.popleft()
-        losses = [float(m["loss"]) for m in window]
-        now = time.perf_counter()
-        if done is not None and self._last_done is not None:
-            done.synchronize()
-            seconds = self._last_done.elapsed_time(done) / 1e3
-        else:
-            seconds = now - (self._last_finish or dispatched)
-        self._last_finish = now
-        self._last_done = done
-        rate = self.args.batch_size * self.data_size * len(window) / seconds
-        for j, (metrics, loss) in enumerate(zip(window, losses)):
-            self.tracker.add(metrics["ts"].cpu().numpy(),
-                             metrics["mses"].float().cpu().numpy())
-            other = {k: float(v) for k, v in metrics["extra"].items()}
-            if "codebook_used" in metrics:
-                other["codebook_used"] = float(metrics["codebook_used"])
-            other["samples_per_sec"] = rate
-            other.update(self.tracker.log_dict())
-            self.logger.log(loop_steps + j + 1, loss=loss, **other)
+        with span("vvs.train.flush"):
+            loop_steps, window, dispatched, done = self._pending.popleft()
+            losses = [float(m["loss"]) for m in window]
+            now = time.perf_counter()
+            if done is not None and self._last_done is not None:
+                done.synchronize()
+                seconds = self._last_done.elapsed_time(done) / 1e3
+            else:
+                seconds = now - (self._last_finish or dispatched)
+            self._last_finish = now
+            self._last_done = done
+            rate = self.args.batch_size * self.data_size * len(window) / seconds
+            for j, (metrics, loss) in enumerate(zip(window, losses)):
+                self.tracker.add(metrics["ts"].cpu().numpy(),
+                                 metrics["mses"].float().cpu().numpy())
+                other = {k: float(v) for k, v in metrics["extra"].items()}
+                if "codebook_used" in metrics:
+                    other["codebook_used"] = float(metrics["codebook_used"])
+                other["samples_per_sec"] = rate
+                other.update(self.tracker.log_dict())
+                self.logger.log(loop_steps + j + 1, loss=loss, **other)
 
     def _flush_pending(self) -> None:
         while self._pending:

@@ -14,6 +14,7 @@ from .diffusion.warp import TimeWarp
 from .diffusion_model import DiffusionModel
 from .model_base import register_model
 from .models import make_encoder
+from .observe import span
 from .vq import Codebook, VQLossConfig, vq_forward, vq_loss_fn
 
 __all__ = ["VQVAE", "jitter_seq"]
@@ -167,7 +168,8 @@ class VQVAE(DiffusionModel):
 
     def encode(self, inputs: torch.Tensor) -> torch.Tensor:
         """Waveform [N, T, 1] -> integer codes [N, T1]."""
-        return vq_forward(self.vq.dictionary, self.encode_raw(inputs))["idxs"]
+        with span("vvs.encode"):
+            return vq_forward(self.vq.dictionary, self.encode_raw(inputs))["idxs"]
 
     def embed_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """[N, T1] int codes -> [N, T1, C] codebook embeddings."""
