@@ -83,7 +83,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    timed beside their bounds, and the apply kernel's int8 mode (1e-4);
    each timed beside its bound and plain version (a fused quantize also
    beside the unfused route; the bf16 cuDNN conv1d of the same shape
-   printed as a different function, for scale). Every ticket counter
+   printed as a different function, for scale). The serving bf16
+   convolution (CUDA, ``csrc/conv1d_bf16.cu``): the shapes one bf16 swap
+   predictor call routes to it read off the call (79 convolutions,
+   asserted), each at batch 64 on the call's seeded layer against its plain
+   version on the card (cuDNN, then the bias add) within 1.5 bf16 ulps of
+   the larger of |sum| and |out| and against the float32 reference rounded
+   once within one ulp (each plus four times the float32 summation bound),
+   twice for the same bits; timed at [64, 64, 64000] 64 -> 64 d2 beside its
+   bound, its plain version and cuDNN with the weight cast once. Every
+   ticket counter
    (ops/tickets.py) is 0 after this phase, after phase 4 and after the
    last.
 3. Main paths, each with every launch count set to 0 just before it and
@@ -93,12 +102,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``python -m vq_voice_swap_torch.sample_vqvae``'s ``main`` on a 4 s WAV,
    with DPM++ (10 steps) and DDPM (5 steps); asserts 64000 output samples
    and the launch counts (VQ once per encode, GroupNorm statistics and
-   apply 131 each per predictor call). Unconditional sampling: a
+   apply 131 each per predictor call, no bf16 convolution kernel in
+   float32). Unconditional sampling: a
    full-width unet64 DiffusionModel on seeded weights, saved as .npz,
    driven through
    ``python -m vq_voice_swap_torch.sample_diffusion``'s ``main`` in bf16
    with --fuse-levels 2, 5 quadratic-warped DDPM steps, 2 samples; asserts
-   two 4 s WAVs and 10 launches of each fused kernel per step; then one
+   two 4 s WAVs, 10 launches of each fused kernel per step and 53 of the
+   serving bf16 convolution (``CONV_BF16_PER_FUSED_PREDICTOR``); then one
    full-width predictor call with fuse_levels=2 against fuse_levels=0, in
    f32 (TF32 off) and bf16. Guided sampling, each CLI's ``main``: the swap
    with encoder-predictor guidance (``sample_vqvae --enc-pred-path``, an
@@ -110,7 +121,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    saved) per guidance-network GroupNorm per step (131 and 55), no
    statistics relaunch, and the forward launch counts.
 4. Serving time: encode + 10-step DPM++ decode of 16 clips in f32 (TF32
-   convolutions, PyTorch's default) and bf16, a torch.profiler breakdown
+   convolutions, PyTorch's default) and bf16 (the warm run's launches of
+   the serving bf16 convolution asserted: 79 a predictor call in bf16, none
+   in f32), a torch.profiler breakdown
    of one predictor call by kernel class with its kernel launch count; a
    check that one GroupNorm is two launches with no torch op between them,
    and the launches, device time and host time of the torch ops left
@@ -237,10 +250,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (a unet64 call, ``INT8_PER_PREDICTOR``: 61 quantizes of two launches,
    38 of them with the GroupNorm apply and 20 with the residual add
    fused in, 50 int8 convolutions, 21 int8 GroupNorm statistics and 4
-   applies, 110 float statistics and 89 applies), then timed in turns with the same CLI
+   applies, 110 float statistics and 89 applies; in bf16 31 launches of the
+   serving bf16 convolution, none in f32), then timed in turns with the same CLI
    without --act-int8, two runs each (RTF of the medians); one predictor
    call at batch 16
-   against the same call through the plain versions on the card (held by
+   against the same call through the plain versions on the card (every
+   float convolution on ``F.conv1d``; held by
    the int8 path's own error: within 1.5 times the L2 distance between the
    plain int8 and the float output, correlation above 0.995 f32 / 0.98
    bf16), one under ``torch.cuda.set_sync_debug_mode("error")`` (no host
@@ -275,7 +290,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from kernel_ab import cuda_ms, eager_ms, seed_weights  # noqa: E402
+from kernel_ab import (cuda_ms, eager_ms, predictor_inputs, seed_weights,  # noqa: E402
+                       swap_predictor)
 from vq_voice_swap_torch import (  # noqa: E402
     eval_diffusion,
     eval_vqvae,
@@ -313,6 +329,7 @@ from vq_voice_swap_torch.diffusion_model import DiffusionModel  # noqa: E402
 from vq_voice_swap_torch.models import make_encoder  # noqa: E402
 from vq_voice_swap_torch.models import layers  # noqa: E402
 from vq_voice_swap_torch.models.layers import ResBlock  # noqa: E402
+from vq_voice_swap_torch.ops import conv1d as c1  # noqa: E402
 from vq_voice_swap_torch.ops import cuda_build  # noqa: E402
 from vq_voice_swap_torch.ops import fused_resblock as frb  # noqa: E402
 from vq_voice_swap_torch.ops import group_norm as gn  # noqa: E402
@@ -349,6 +366,15 @@ UNCOND_KWARGS = dict(pred_name="unet", base_channels=64)
 FUSE_LEVELS = 2
 FUSED_PER_PREDICTOR = 10  # unet64, fuse_levels=2: 4 down and 6 up blocks
 TWO_INPUT_PER_PREDICTOR = 5  # up blocks whose skip is the second input
+# Launches of the serving bf16 convolution (ops/conv1d.py's rule) a unet64
+# predictor call at 4 s: 79 of its 163 convolutions (every one with Cin up
+# to 192, the 3-tap 256 -> 128); 53 with fuse_levels=2 (the fused blocks'
+# convolutions leave); 31 at --act-int8 16000 (the levels at T <= 8000,
+# in_conv and out_conv). None in the conv-MFCC encoder.
+CONV_BF16_PER_PREDICTOR = 79
+CONV_BF16_PER_FUSED_PREDICTOR = 53
+CONV_BF16_PER_INT8_PREDICTOR = 31
+CONV_BF16_BATCH = 64  # the swap cell's batch
 EMB = 256  # unet64's embedding width
 # The guidance networks, at the JAX package's training defaults
 # (train/loops.py:1151-1155, 1216-1220): 131 and 55 GroupNorms.
@@ -1357,6 +1383,100 @@ def check_int8_kernels(dev, gen):
     return entries
 
 
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp at |v| (float32), 0 at 0."""
+    _, e = torch.frexp(v)
+    return torch.where(v == 0, 0.0, torch.ldexp(torch.ones_like(v), e - 8))
+
+
+@torch.no_grad()
+def check_conv1d_bf16(dev, gen):
+    """The serving bf16 convolution (csrc/conv1d_bf16.cu, through the
+    route's wrapper and the layer's kept weight) against its plain version
+    on the card, ``conv1d_bf16_plain`` (cuDNN's bf16 convolution, then
+    aten's bias add), at every shape one bf16 swap predictor call routes to
+    it, on that call's seeded layers at batch 64. The plain version rounds
+    the float32 sum to bf16 and again after the bias, the kernel once after
+    it: the two lie within 1.5 bf16 ulps of the larger of |sum| and |out|
+    (plus four times the float32 summation bound: both sum the same exact
+    products in other orders), and the kernel within one ulp of the float32
+    reference rounded once. Timed at [64, 64, 64000] 64 -> 64 d2 beside its
+    bound, its plain version and cuDNN with the bf16 weight cast once.
+    Returns its JSON entry (launches are phase 4's)."""
+    model = swap_predictor(DiffusionModel, dev)
+    layers_at = {}
+
+    def hook(m, args):
+        x = args[0]
+        if c1.routes(x.device.type, x.dtype, False, x.shape, True, m.conv):
+            cout, cin, taps = m.conv.weight.shape
+            key = (cin, cout, taps, m.conv.dilation[0], x.shape[2])
+            layers_at.setdefault(key, []).append(m.conv)
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, layers.Conv1d)]
+    model.predict_eps(*predictor_inputs(dev, 1))
+    for h in handles:
+        h.remove()
+    routed = sum(len(v) for v in layers_at.values())
+    print(f"conv1d_bf16: one bf16 swap predictor call routes {routed} convolutions of "
+          f"{len(layers_at)} shapes to the kernel")
+    assert routed == CONV_BF16_PER_PREDICTOR, routed
+    n = CONV_BF16_BATCH
+    worst_plain = worst_ref = err = 0.0
+    for (cin, cout, taps, dil, t), convs in sorted(layers_at.items()):
+        conv = convs[0]
+        x = torch.randn(n, cin, t, generator=gen, device=dev).to(torch.bfloat16)
+        got = c1.conv1d_bf16(x, conv.weight, conv.bias, dil, conv)
+        plain = c1.conv1d_bf16_plain(x, conv.weight, conv.bias, dil)
+        again = c1.conv1d_bf16(x, conv.weight, conv.bias, dil, conv)
+        wb = conv.weight.to(torch.bfloat16).float()
+        bb = conv.bias.to(torch.bfloat16).float()
+        pad = conv.padding[0]
+        total = F.conv1d(x.float(), wb, None, padding=pad, dilation=dil)
+        slack = 4 * (cin * taps + 1) * 2.0 ** -24 * (
+            F.conv1d(x.float().abs(), wb.abs(), None, padding=pad, dilation=dil)
+            + bb.abs()[:, None])
+        total_b = total + bb[:, None]
+        want = total_b.to(torch.bfloat16).float()
+        ulp = bf16_ulp(torch.maximum(total.abs(), total_b.abs()) * (1 + 2.0 ** -7))
+        gap = (got.float() - plain.float()).abs()
+        off_ref = (got.float() - want).abs()
+        r_plain = ((gap - slack) / ulp.clamp(min=2.0 ** -133)).max().item()
+        r_ref = ((off_ref - slack) / bf16_ulp(want).clamp(min=2.0 ** -133)).max().item()
+        same = torch.equal(got, again)
+        print(f"conv1d_bf16 [{n}, {cin}, {t}] {cin}->{cout} k{taps} d{dil} x{len(convs)}: "
+              f"kernel vs plain at most {r_plain:.3f} ulps beyond the summation bound, vs "
+              f"the float32 reference rounded once {r_ref:.3f}; bits equal to plain "
+              f"{(got == plain).float().mean().item():.4f}, same bits twice {same}")
+        assert bool((gap <= 1.5 * ulp + slack).all()), (cin, cout, taps, dil, t)
+        assert bool((off_ref <= bf16_ulp(want) + slack).all()), (cin, cout, taps, dil, t)
+        assert same
+        worst_plain, worst_ref = max(worst_plain, r_plain), max(worst_ref, r_ref)
+        err = max(err, gap.max().item())
+        del x, got, plain, again, total, slack, total_b, want, ulp, gap, off_ref
+        torch.cuda.empty_cache()
+
+    conv = layers_at[(64, 64, 3, 2, SAMPLES)][0]
+    x = torch.randn(n, 64, SAMPLES, generator=gen, device=dev).to(torch.bfloat16)
+    wb, bb = conv.weight.to(torch.bfloat16), conv.bias.to(torch.bfloat16)
+    ms = cuda_ms(lambda: c1.conv1d_bf16(x, conv.weight, conv.bias, 2, conv), 10)
+    plain_ms = cuda_ms(lambda: c1.conv1d_bf16_plain(x, conv.weight, conv.bias, 2), 10)
+    lib_ms = cuda_ms(lambda: F.conv1d(x, wb, bb, padding=2, dilation=2), 10)
+    cb, cby = bound_ms(2 * x.numel() * 2 + wb.numel() * 2, 2.0 * n * SAMPLES * 64 * 64 * 3,
+                       BF16_FLOP_PER_S)
+    print(f"conv1d_bf16 timing [{n}, 64, {SAMPLES}] 64->64 k3 d2: {ms:.4f} ms "
+          f"({100 * cb / ms:.1f}% of its bound {cb:.4f} by {cby}; plain {plain_ms:.4f}; "
+          f"cuDNN + bias, the weight cast once, {lib_ms:.4f}); kernel vs plain at most "
+          f"{worst_plain:.3f} ulps, vs the reference {worst_ref:.3f}")
+    del x, model, layers_at
+    torch.cuda.empty_cache()
+    return dict(name="conv1d_bf16", route="cuda", source="vq_voice_swap_torch/csrc/conv1d_bf16.cu",
+                replaces="none: XLA's convolution (vq_voice_swap_tpu/models/layers.py, nn.Conv)",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=cb,
+                bound_by=cby, library_ms=lib_ms)
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -1386,7 +1506,7 @@ COUNTED = (vqa.vq_assign, gn.group_norm_coeffs, gn.group_norm_stats, gn.group_no
            gn.group_norm_bwd_reduce, gn.group_norm_bwd_dx,
            frb.fused_resblock_stats, frb.fused_resblock_apply,
            qact.quantize, qact.quantize_group_norm, qact.quantize_residual, qact.conv1d_int8,
-           gn.group_norm_coeffs_int8, gn.group_norm_apply_int8)
+           gn.group_norm_coeffs_int8, gn.group_norm_apply_int8, c1.conv1d_bf16)
 KERNEL_WRAPPERS = {"group_norm_stats": ("group_norm_coeffs", "group_norm_stats"),
                    "group_norm_stats_int8": ("group_norm_coeffs_int8",)}
 INT8_KERNELS = ("conv1d_int8", "quantize", "quantize_group_norm", "quantize_residual",
@@ -1446,6 +1566,7 @@ def main_path(dev, workdir: str, clips: np.ndarray):
         assert counts["group_norm_coeffs"] == GN_PER_PREDICTOR * steps
         assert counts["group_norm_stats"] == counts["group_norm_backward"] == 0
         assert counts["fused_resblock_stats"] == counts["fused_resblock_apply"] == 0
+        assert counts["conv1d_bf16"] == 0  # float32
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
     return ckpt, totals
@@ -1494,6 +1615,7 @@ def sampling_path(dev, workdir: str):
     assert counts["group_norm_coeffs"] == unfused_gn + fused + TWO_INPUT_PER_PREDICTOR * steps
     assert counts["group_norm_stats"] == counts["group_norm_backward"] == 0
     assert counts["vq_assign"] == 0
+    assert counts["conv1d_bf16"] == CONV_BF16_PER_FUSED_PREDICTOR * steps
 
     # One full-width predictor call, fuse_levels=2 against 0, same input.
     torch.backends.cudnn.allow_tf32 = False
@@ -1622,10 +1744,11 @@ def guided_paths(dev, workdir: str, ckpt: str, uncond_ckpt: str, ep_ckpt: str,
 # ------------------------------------------------------------------ phase 4
 
 
-def serving_time(dev, ckpt: str, clips: np.ndarray, smi: str):
+def serving_time(dev, ckpt: str, clips: np.ndarray, smi: str) -> int:
     """Encode + 10-step DPM++ decode of BATCH clips, 3 timed runs after a
-    warm one, per compute dtype; then where one predictor call's device
-    time goes."""
+    warm one, per compute dtype, the serving bf16 convolution's launches
+    asserted in the warm run; then where one predictor call's device time
+    goes. Returns the bf16 run's launches of that convolution."""
     audio = torch.from_numpy(clips[:, :, None]).to(dev)
     labels = torch.arange(BATCH, device=dev) * 13 % MODEL_KWARGS["num_labels"]
     outs = {}
@@ -1641,7 +1764,14 @@ def serving_time(dev, ckpt: str, clips: np.ndarray, smi: str):
                     generator=torch.Generator(device=dev).manual_seed(0),
                 )
 
+        reset_counts()
         swap()  # warm: kernel compiles and cuDNN plans
+        torch.cuda.synchronize()
+        conv_launches = c1.conv1d_bf16.launches
+        print(f"serving {name}: conv1d_bf16 launches in one swap {conv_launches}")
+        assert conv_launches == (CONV_BF16_PER_PREDICTOR * 10 if dtype else 0), conv_launches
+        if dtype:
+            bf16_launches = conv_launches
         runs = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1660,6 +1790,7 @@ def serving_time(dev, ckpt: str, clips: np.ndarray, smi: str):
         del model
     gap = (outs["float32"] - outs["bfloat16"]).abs().mean().item()
     print(f"serving: mean |f32 - bf16| waveform gap {gap:.4g}")
+    return bf16_launches
 
 
 def _kernel_class(name: str) -> str:
@@ -3568,11 +3699,19 @@ def tensor_parallel_paths(workdir: str, smi: str, launch: Launch, world1_runs) -
     counts = {}
 
     def same_launches(run: str, per: str, calls: int):
-        want = one[run if run in one else "one"]["counts"]
+        """Each rank launches every kernel as the world-1 run does, but the
+        serving bf16 convolution: a rank's column shards (Cout / TP_SIZE)
+        fit the route's rule where some whole layers do not (256 -> 256),
+        so every rank launches it alike and at least as often."""
+        want = dict(one[run if run in one else "one"]["counts"])
+        conv = want.pop("conv1d_bf16")
+        first = ranks[0][run]["counts"]["conv1d_bf16"]
         for r, res in enumerate(ranks):
-            c = res[run]["counts"]
-            counts[f"{run} rank {r}"] = c
+            c = dict(res[run]["counts"])
+            counts[f"{run} rank {r}"] = res[run]["counts"]
+            rank_conv = c.pop("conv1d_bf16")
             assert c == want, (run, r, c, want)
+            assert rank_conv == first >= conv, (run, r, rank_conv, conv)
         c = ranks[0][run]["counts"]
         return ", ".join(f"{k} {v / calls:g}" for k, v in c.items() if v) + f" a {per}"
 
@@ -3608,6 +3747,10 @@ def tensor_parallel_paths(workdir: str, smi: str, launch: Launch, world1_runs) -
           f"peak device memory a rank {[round(x['sampling']['peak_gib'], 3) for x in ranks]} "
           f"GiB; launches a rank: {launches}")
     assert max(errs) <= TP_SAMPLE_TOL
+    conv = one["sampling"]["counts"]["conv1d_bf16"]
+    print(f"  sampling: serving bf16 convolution launches a rank "
+          f"{ranks[0]['sampling']['counts']['conv1d_bf16']}, world 1 {conv}")
+    assert conv == CONV_BF16_PER_FUSED_PREDICTOR * TP_SAMPLE_STEPS, conv
     assert ranks[0]["sampling"]["counts"]["fused_resblock_stats"] == \
         ranks[0]["sampling"]["counts"]["fused_resblock_apply"] == \
         FUSED_PER_PREDICTOR * TP_SAMPLE_STEPS
@@ -4032,8 +4175,9 @@ INT8_SAMPLE_STEPS = 5
 @contextlib.contextmanager
 def plain_versions():
     """The UNet's kernels replaced by their plain versions, on whatever
-    device: the int8 path's (quantize, the convolution, the int8 GroupNorm)
-    and the float GroupNorm's."""
+    device: the int8 path's (quantize, the convolution, the int8 GroupNorm),
+    the float GroupNorm's and the serving bf16 convolution's (the rule
+    routes nothing, so every float convolution runs ``F.conv1d``)."""
     def group_norm_plain(x, weight, bias, num_groups, eps, use_gelu, film=None):
         coeffs = gn.group_norm_coeffs_plain(x, num_groups, weight, bias, eps, film)
         return gn.group_norm_apply_plain(x, *coeffs, use_gelu)
@@ -4046,7 +4190,8 @@ def plain_versions():
                  group_norm_coeffs=gn.group_norm_coeffs_plain,
                  group_norm_coeffs_int8=gn.group_norm_coeffs_int8_plain,
                  quantize_group_norm=qact.quantize_group_norm_plain,
-                 quantize_residual=qact.quantize_residual_plain)
+                 quantize_residual=qact.quantize_residual_plain,
+                 routes=lambda *args: False)
     saved = {k: getattr(layers, k) for k in plain}
     for k, v in plain.items():
         setattr(layers, k, v)
@@ -4136,7 +4281,8 @@ def int8_serving_paths(dev, workdir: str, ckpt: str, uncond_ckpt: str, smi: str)
         counts[name] = read_counts()
         want = {k: v * calls for k, v in INT8_PER_PREDICTOR.items()}
         want.update(vq_assign=0 if cli is sample_diffusion else 1, group_norm_stats=0,
-                    group_norm_backward=0, fused_resblock_stats=0, fused_resblock_apply=0)
+                    group_norm_backward=0, fused_resblock_stats=0, fused_resblock_apply=0,
+                    conv1d_bf16=CONV_BF16_PER_INT8_PREDICTOR * calls if "bf16" in name else 0)
         got = {k: counts[name][k] for k in want}
         print(f"phase 10 {name} --act-int8 {INT8_MIN_T} on {smi}: launches {got}")
         assert got == want, (name, got, want)
@@ -4185,7 +4331,7 @@ def int8_serving_paths(dev, workdir: str, ckpt: str, uncond_ckpt: str, smi: str)
     torch.cuda.synchronize()
     counts["uncond f32"] = read_counts()
     want = {k: v * 10 for k, v in INT8_PER_PREDICTOR.items()}
-    want.update(vq_assign=1, group_norm_backward=0)
+    want.update(vq_assign=1, group_norm_backward=0, conv1d_bf16=0)
     got = {k: counts["uncond f32"][k] for k in want}
     print(f"phase 10 sample_vqvae_uncond --act-int8 {INT8_MIN_T}: launches {got}")
     assert got == want, (got, want)
@@ -4229,6 +4375,7 @@ def main() -> int:
     check_group_norm_training_grads(dev, gen)
     kernels += check_fused_resblock(dev, gen)
     kernels += check_int8_kernels(dev, gen)
+    kernels.append(check_conv1d_bf16(dev, gen))
     check_tickets("the kernel checks")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for serving
     torch.cuda.empty_cache()
@@ -4246,12 +4393,15 @@ def main() -> int:
             if k["name"] == "group_norm_backward":  # the two differentiating paths
                 k["launches"] = sum(c["_bwd_cluster"] for c in guided.values())
                 continue
-            if k["name"] == "group_norm_bwd_split" or k["name"] in INT8_KERNELS:
-                continue  # phases 9 and 10 set them
+            if k["name"] in ("group_norm_bwd_split", "conv1d_bf16") or k["name"] in INT8_KERNELS:
+                continue  # phases 4, 9 and 10 set them
             path = sampling_launches if k["name"].startswith("fused") else swap_launches
             k["launches"] = sum(path[w] for w in KERNEL_WRAPPERS.get(k["name"], (k["name"],)))
         print(f"phase 3: {time.perf_counter() - t_start:.1f} s")
-        serving_time(dev, ckpt, clips, smi)
+        conv_launches = serving_time(dev, ckpt, clips, smi)
+        for k in kernels:
+            if k["name"] == "conv1d_bf16":  # phase 4's bf16 swap
+                k["launches"] = conv_launches
         sampling_serving_time(dev, uncond_ckpt, smi)
         guided_serving_time(dev, ckpt, uncond_ckpt, ep_ckpt, clf_ckpt, clips, smi)
         check_tickets("the main paths and serving")

@@ -6,7 +6,8 @@ versions can be compared in one call on one card:
     python3 kernel_ab.py [TREE] [--only SECTION] [--reference OTHER_TREE]
 
 TREE is the root of a checkout (default: here); SECTION one of vq,
-groupnorm, backward, resblock, int8, int8call (default: all).
+groupnorm, backward, resblock, int8, int8call, conv, convcall (default:
+all).
 
 To compare a change with its parent, unpack the parent into a directory and
 run parent, change, change, parent in one command, or pass it as
@@ -60,7 +61,17 @@ tree has them, its fused entry points (``quantize_group_norm``,
 ``quantize_residual``); with ``--reference``, OTHER_TREE's package is
 loaded beside it under another name, its unfused route timed too and its
 codes and scales held against the tree's fused ones on the same inputs
-(the share of codes that differ). Exits non-zero without a card.
+(the share of codes that differ). The bf16 serving convolution (conv): at
+every shape of one swap predictor call (unet64, 1024-channel codes, 251
+labels, batch 64 x 64000; the shapes read off the call by hooks, each with
+its count a call), the hand-written kernel (``ops/conv1d.py``, launched
+whether or not the route's rule takes the shape) against the call the
+route replaces, ``F.conv1d`` of the bf16-cast weight and bias (cuDNN, its
+layout transposes and aten's bias add), and the funnel
+``models/layers.py`` ``conv1d`` as the model calls it, with the rule's
+choice; convcall: one whole bf16 swap predictor call at batch 64, with
+``--reference`` OTHER_TREE's model on the same weights in turns. Exits
+non-zero without a card.
 """
 
 import math
@@ -70,11 +81,13 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 ITERS = 50
 PAIR_ITERS = 10  # the pair's calls take ~1 ms and a [16, 64, 64000] output each
 BWD_ITERS = 20   # each backward call writes a [16, 32, 64000] dx
-SECTIONS = ("vq", "groupnorm", "backward", "resblock", "int8", "int8call")
+SECTIONS = ("vq", "groupnorm", "backward", "resblock", "int8", "int8call", "conv", "convcall")
+CONV_ITERS = 10  # a call at the top level reads and writes ~1 GB
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -385,6 +398,132 @@ def time_int8_call(label: str, dev, reference) -> None:
                 torch.cuda.empty_cache()
 
 
+def swap_predictor(cls, dev):
+    """The swap cell's predictor (unet64, 1024-channel codes, 251 labels) in
+    bf16 on seeded weights, from a tree's ``DiffusionModel``."""
+    model = cls("unet", 64, num_labels=251, cond_channels=1024, dtype="bfloat16")
+    seed_weights(model, 5)
+    return model.to(dev).eval()
+
+
+def predictor_inputs(dev, n: int):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    return (torch.randn(n, 64000, 1, generator=gen, device=dev),
+            torch.full((n,), 0.5, device=dev),
+            torch.randn(n, 200, 1024, generator=gen, device=dev),
+            torch.arange(n, device=dev) % 251)
+
+
+@torch.no_grad()  # the serving forward, the route's domain
+def time_conv(label: str, dev) -> None:
+    """Each convolution shape of one swap predictor call at batch 64: the
+    kernel, the call it replaces and the funnel, device and eager."""
+    from vq_voice_swap_torch.diffusion_model import DiffusionModel
+    from vq_voice_swap_torch.models import layers
+    from vq_voice_swap_torch.ops import conv1d as c1
+
+    model = swap_predictor(DiffusionModel, dev)
+    shapes = {}
+
+    def hook(m, args):
+        cout, cin, taps = m.conv.weight.shape
+        key = (cin, cout, taps, m.conv.dilation[0], args[0].shape[2])
+        shapes.setdefault(key, [m.conv, 0])[1] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, layers.Conv1d)]
+    with torch.no_grad():
+        model.predict_eps(*predictor_inputs(dev, 1))
+    for h in handles:
+        h.remove()
+    n = 64
+    gen = torch.Generator(device=dev).manual_seed(4)
+    totals = {"kernel": 0.0, "cudnn": 0.0, "routed cudnn": 0.0, "routed kernel": 0.0}
+    print(f"{label} conv: {sum(c for _, c in shapes.values())} convolutions a predictor call, "
+          f"{len(shapes)} shapes, timed at batch {n}")
+    for (cin, cout, taps, dil, t), (conv, count) in sorted(shapes.items(),
+                                                           key=lambda kv: -kv[0][4]):
+        x = torch.randn(n, cin, t, generator=gen, device=dev).to(torch.bfloat16)
+        pad = conv.padding[0]
+        takes = c1.routes("cuda", torch.bfloat16, False, x.shape, True, conv)
+        name = (f"{label} conv [{n}, {cin}, {t}] {cin}->{cout} k{taps} d{dil} x{count} "
+                f"(route: {'kernel' if takes else 'cuDNN'})")
+
+        def cudnn():
+            return F.conv1d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=pad,
+                            dilation=dil)
+
+        lib_ms = cuda_ms(cudnn, CONV_ITERS)
+        lib_eager, lib_host = eager_ms(cudnn, CONV_ITERS)
+        print(f"{name} F.conv1d + bias (today's call): device {lib_ms:.4f} ms, "
+              f"eager {lib_eager:.4f} ms, host {lib_host:.1f} us")
+        totals["cudnn"] += count * lib_ms
+        if t % c1.T_ALIGN or taps not in (1, 3) or (taps - 1) * dil > c1.MAX_REACH:
+            totals["kernel"] += count * lib_ms
+            totals["routed cudnn"] += count * lib_ms
+            print(f"{name} kernel: does not take the shape")
+            continue
+        layout, b32 = c1._prepare(conv.weight, conv.bias)
+        out = torch.empty((n, cout, t), dtype=torch.bfloat16, device=dev)
+
+        def kernel():
+            assert c1._launch(x, layout, b32, out, dil, dev.index or 0) == 0
+
+        k_ms = cuda_ms(kernel, CONV_ITERS)
+        funnel_eager, funnel_host = eager_ms(lambda: layers.conv1d(x, conv), CONV_ITERS)
+        print(f"{name} kernel: device {k_ms:.4f} ms ({lib_ms / k_ms:.2f}x); funnel eager "
+              f"{funnel_eager:.4f} ms, host {funnel_host:.1f} us")
+        totals["kernel"] += count * min(k_ms, lib_ms)
+        totals["routed kernel" if takes else "routed cudnn"] += count * (k_ms if takes else lib_ms)
+        del x, out
+        torch.cuda.empty_cache()
+    # The host's cost of a call, where the device's is small: the funnel
+    # (routing, the kept weight, the launch) against today's call.
+    conv = torch.nn.Conv1d(64, 64, 3, dilation=2, padding=2).to(dev)
+    x = torch.randn(1, 64, 8000, generator=gen, device=dev).to(torch.bfloat16)
+
+    def cudnn_funnel():
+        routes = layers.routes
+        layers.routes = lambda *args: False
+        try:
+            return layers.conv1d(x, conv)
+        finally:
+            layers.routes = routes
+    for what, fn in (("F.conv1d + bias (today's call)",
+                      lambda: F.conv1d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                                       padding=2, dilation=2)),
+                     ("funnel, the cuDNN route (as before the kernel)", cudnn_funnel),
+                     ("funnel, the kernel route", lambda: layers.conv1d(x, conv)),
+                     ("the kernel's wrapper", lambda: c1.conv1d_bf16(x, conv.weight, conv.bias,
+                                                                     2, conv))):
+        ms, host_us = eager_ms(fn, 500)
+        print(f"{label} conv host cost [1, 64, 8000] 64->64 k3 d2, {what}: {host_us:.2f} us a "
+              f"call (eager {ms * 1e3:.1f} us)")
+    print(f"{label} conv a predictor call at batch {n}: cuDNN + bias {totals['cudnn']:.3f} ms; "
+          f"the route {totals['routed kernel'] + totals['routed cudnn']:.3f} ms (kernel "
+          f"{totals['routed kernel']:.3f}, cuDNN {totals['routed cudnn']:.3f}); the faster of "
+          f"the two at each shape {totals['kernel']:.3f} ms")
+
+
+def time_conv_call(label: str, dev, reference) -> None:
+    """One whole bf16 swap predictor call at batch 64; with a reference
+    tree, its model on the same weights in turns."""
+    from vq_voice_swap_torch.diffusion_model import DiffusionModel
+
+    trees = [(label, DiffusionModel)]
+    if reference is not None:
+        ref = ("the reference tree", reference[2])
+        trees = [ref, trees[0], trees[0], ref]
+    inputs = predictor_inputs(dev, 64)
+    for tree, cls in trees:
+        model = swap_predictor(cls, dev)
+        with torch.no_grad():
+            print(f"{tree} swap predictor call [64, 64000] bf16: "
+                  f"{timings(lambda: model.predict_eps(*inputs), 3)}")
+        del model
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -468,6 +607,10 @@ def main(argv) -> int:
         time_int8(label, dev, gen, ref)
     if "int8call" in only:
         time_int8_call(label, dev, ref)
+    if "conv" in only:
+        time_conv(label, dev)
+    if "convcall" in only:
+        time_conv_call(label, dev, ref)
     return 0
 
 

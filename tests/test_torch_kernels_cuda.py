@@ -7,12 +7,16 @@ runs where JAX is not installed:
 """
 
 import copy
+import math
 import os
 
 import pytest
 import torch
+import torch.nn.functional as F
 
+from vq_voice_swap_torch.models import layers
 from vq_voice_swap_torch.models.layers import ResBlock
+from vq_voice_swap_torch.ops import conv1d as c1
 from vq_voice_swap_torch.ops import fused_resblock as frb
 from vq_voice_swap_torch.ops import group_norm as gn
 from vq_voice_swap_torch.ops import vq_assign as vqa
@@ -1220,3 +1224,220 @@ def test_quantize_then_upsample_is_upsample_then_quantize_on_card(cuda_gen, dtyp
     up = qact.qact_upsample(qact.quantize(x), 2)
     ref = qact.quantize(torch.repeat_interleave(x, 2, dim=-1))
     assert torch.equal(up.q, ref.q) and torch.equal(up.scale, ref.scale)
+
+
+# ------------------------------------------------ the bf16 convolution (ops/conv1d.py)
+
+
+def _conv_case(gen, n, cin, cout, taps, t):
+    x = torch.randn(n, cin, t, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(cout, cin, taps, generator=gen, device="cuda") / math.sqrt(cin * taps)
+    b = 0.5 * torch.randn(cout, generator=gen, device="cuda")
+    return x, w, b
+
+
+def _conv_kernel(x, w, b, dilation):
+    """One launch of the kernel at any shape it takes, the route's rule
+    aside."""
+    layout, b32 = c1._prepare(w, b)
+    out = torch.empty((x.shape[0], w.shape[0], x.shape[2]), dtype=torch.bfloat16,
+                      device=x.device)
+    assert c1._launch(x, layout, b32, out, dilation, x.device.index) == 0
+    return out
+
+
+def _assert_conv_close(got, x, w, b, dilation):
+    """got against the float32 convolution of the same bf16 inputs (TF32
+    off) plus the bf16 bias, rounded once to bf16: within one bf16 ulp of
+    that value, plus four times the float32 summation bound of Cin * taps + 1
+    terms (n 2^-24 of the sum of the terms' magnitudes): the kernel and
+    cuDNN sum the same exact products in float32 in different orders. At
+    least 99% of the elements equal the reference's bits."""
+    taps = w.shape[-1]
+    wb, bb = w.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
+    pad = (taps - 1) * dilation // 2
+    ref = F.conv1d(x.float(), wb, bb, padding=pad, dilation=dilation)
+    mag = F.conv1d(x.float().abs(), wb.abs(), bb.abs(), padding=pad, dilation=dilation)
+    want = ref.to(torch.bfloat16)
+    _, e = torch.frexp(want.float())
+    ulp = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(ref), e - 8))
+    bound = ulp + 4 * (x.shape[1] * taps + 1) * 2.0 ** -24 * mag
+    err = (got.float() - want.float()).abs()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool((err <= bound).all()), (err - bound).max().item()
+    assert (got == want).float().mean().item() >= 0.99
+
+
+def _swap_model():
+    """The swap model's shapes (unet64 predictor with 1024-channel codes and
+    251 labels, conv-MFCC encoder) in bf16, seeded."""
+    from vq_voice_swap_torch.vq_vae import VQVAE
+
+    gen = torch.Generator().manual_seed(21)
+    model = VQVAE(64, enc_name="conv-mfcc-ulaw", pred_name="unet", num_labels=251,
+                  dtype="bfloat16")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(p[0].numel())
+                    if p.ndim >= 2 else 0.1 * torch.randn(p.shape, generator=gen))
+    return model.cuda().eval()
+
+
+def _routed_calls(model, fn):
+    """fn() with a hook on every Conv1d of ``model``: the (Cin, Cout, taps,
+    dilation, T) of each call the rule routes to the kernel, in call
+    order."""
+    calls = []
+
+    def hook(m, args):
+        x = args[0]
+        if isinstance(x, torch.Tensor):
+            recording = torch.is_grad_enabled() and (
+                x.requires_grad or m.conv.weight.requires_grad)
+            if c1.routes(x.device.type, x.dtype, recording, x.shape,
+                         x.is_contiguous(), m.conv):
+                cout, cin, taps = m.conv.weight.shape
+                calls.append((cin, cout, taps, m.conv.dilation[0], x.shape[2]))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, layers.Conv1d)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def _predict(model, n, gen):
+    x = torch.randn(n, 64000, 1, generator=gen, device="cuda")
+    ts = torch.full((n,), 0.5, device="cuda")
+    cond = torch.randn(n, 200, 1024, generator=gen, device="cuda")
+    labels = torch.arange(n, device="cuda")
+    return lambda: model.predict_eps(x, ts, cond, labels)
+
+
+@pytest.mark.cuda
+def test_conv1d_bf16_matches_reference_at_every_routed_shape(cuda_gen):
+    """Every shape the swap model's predictor and encoder route to the
+    kernel at 4 s, at batch 2, against the float32 reference."""
+    model = _swap_model()
+    with torch.no_grad():
+        calls = _routed_calls(model, _predict(model, 1, cuda_gen))
+        clip = torch.randn(1, 64000, 1, generator=cuda_gen, device="cuda")
+        encoder_calls = _routed_calls(model, lambda: model.encode(clip))
+    shapes = sorted(set(calls + encoder_calls))
+    print(f"{len(calls)} routed predictor calls, {len(encoder_calls)} encoder calls, "
+          f"{len(shapes)} shapes: {shapes}")
+    assert len(calls) >= 70 and len(shapes) >= 25  # 72 and 30 with Cin up to 192
+    for cin, cout, taps, dilation, t in shapes:
+        x, w, b = _conv_case(cuda_gen, 2, cin, cout, taps, t)
+        got = c1.conv1d_bf16(x, w, b, dilation)
+        _assert_conv_close(got, x, w, b, dilation)
+        del x, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cin,cout,taps,dilation,t", [
+    (3, 1, 64, 3, 1, 4000),       # Cin 1 (in_conv)
+    (3, 64, 1, 3, 1, 4000),       # Cout 1 (out_conv)
+    (2, 192, 64, 3, 1, 1000),     # concat widths
+    (2, 192, 64, 1, 1, 1000),
+    (2, 384, 128, 3, 1, 1000),
+    (2, 384, 128, 1, 1, 1000),
+    (2, 64, 64, 3, 32, 3000),     # a dilation of 32
+    (2, 64, 96, 3, 100, 1000),    # a halo of 200 positions, wider than a tile
+    (2, 48, 70, 3, 2, 200),       # T not a multiple of the 128-position tile
+    (1, 64, 64, 3, 2, 64000),     # batch 1
+    (2, 20, 130, 1, 1, 8),        # one chunk of T, Cin and Cout padded
+    (2, 1024, 64, 1, 1, 200),     # 1 tap, a weight slice a stage
+    (2, 512, 256, 3, 2, 1000),    # 3 taps, a weight slice a stage
+    (2, 200, 70, 3, 1, 1000),     # ... and a last stage of 16 channels
+])
+def test_conv1d_bf16_kernel_matches_reference(cuda_gen, n, cin, cout, taps, dilation, t):
+    x, w, b = _conv_case(cuda_gen, n, cin, cout, taps, t)
+    launches = c1.conv1d_bf16.launches
+    got = _conv_kernel(x, w, b, dilation)
+    _assert_conv_close(got, x, w, b, dilation)
+    if c1.fits(cin, cout, taps, 1, (taps - 1) * dilation // 2, dilation, 1, t):
+        assert torch.equal(c1.conv1d_bf16(x, w, b, dilation), got)
+        assert c1.conv1d_bf16.launches == launches + 1
+    no_bias = _conv_kernel(x, w, None, dilation)
+    _assert_conv_close(no_bias, x, w, torch.zeros_like(b), dilation)
+
+
+@pytest.mark.cuda
+def test_conv1d_bf16_same_bits_twice_and_in_a_cuda_graph(cuda_gen):
+    """Two eager calls give the same bits; the calls captured in a CUDA
+    graph and replayed on new inputs give the eager calls' bits."""
+    m = torch.nn.Conv1d(64, 64, 3, dilation=2, padding=2).cuda()
+    shape = (4, 64, 16000)
+    static = torch.randn(shape, generator=cuda_gen, device="cuda").to(torch.bfloat16)
+
+    def run(x):
+        return c1.conv1d_bf16(x, m.weight, m.bias, 2, m)
+
+    first = run(static)
+    assert torch.equal(run(static), first)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run(static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    launches = c1.conv1d_bf16.launches
+    with torch.cuda.graph(graph, stream=stream):
+        out = run(static)
+    assert c1.conv1d_bf16.launches == launches + 1
+    for _ in range(3):
+        new = torch.randn(shape, generator=cuda_gen, device="cuda").to(torch.bfloat16)
+        static.copy_(new)
+        graph.replay()
+        assert torch.equal(out, run(new))
+    del graph
+
+
+@pytest.mark.cuda
+def test_conv1d_bf16_route_under_inference_mode(cuda_gen):
+    """A layer made and run under ``torch.inference_mode`` (the eval CLIs
+    load their models so) takes the kernel route, its weight made each
+    call: the bits of the same layer under ``no_grad``."""
+    with torch.inference_mode():
+        m = layers.Conv1d(64, 64, 3, dilation=2).cuda()
+        x = torch.randn(2, 64, 4000, generator=cuda_gen, device="cuda").to(torch.bfloat16)
+        launches = c1.conv1d_bf16.launches
+        got = m(x)
+        assert c1.conv1d_bf16.launches == launches + 1
+    with torch.no_grad():
+        want = c1.conv1d_bf16(x.clone(), m.conv.weight.clone(), m.conv.bias.clone(), 2)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_predictor_launches_the_kernel_as_the_rule_routes(cuda_gen, monkeypatch):
+    """One unet64 bf16 predictor call under no_grad launches the kernel
+    once for each convolution the rule routes, and its output lies within
+    bf16 noise of the same call with every convolution on cuDNN; under grad
+    it launches it 0 times."""
+    model = _swap_model()
+    call = _predict(model, 2, cuda_gen)
+    with torch.no_grad():
+        routed = _routed_calls(model, call)
+        launches = c1.conv1d_bf16.launches
+        got = call()
+        assert c1.conv1d_bf16.launches == launches + len(routed)
+        with monkeypatch.context() as mp:
+            mp.setattr(layers, "routes", lambda *args: False)
+            cudnn = call()
+            assert c1.conv1d_bf16.launches == launches + len(routed)
+    rel = ((got - cudnn).norm() / cudnn.norm()).item()
+    print(f"{len(routed)} routed convolutions; predictor output against cuDNN's: "
+          f"relative L2 {rel:.3g}")
+    assert rel < 2e-2
+    model.requires_grad_(True)
+    with torch.enable_grad():
+        launches = c1.conv1d_bf16.launches
+        out = call()
+        out.float().square().mean().backward()
+    assert c1.conv1d_bf16.launches == launches

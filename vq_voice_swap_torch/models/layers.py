@@ -7,6 +7,11 @@ checkpoints map by rule
 its input's dtype and casts each parameter per op, as flax does with a
 compute ``dtype``. GroupNorm statistics are float32 whatever the dtype.
 
+``conv1d`` runs a bf16 convolution on the card that autograd does not
+record (the serving forward) through the hand-written kernel of
+``ops/conv1d.py`` where its shape fits (``routes``), with the bias in its
+epilogue; every other convolution runs ``F.conv1d`` (cuDNN on the card).
+
 A ResBlock's ``remat`` policy (the counterpart of the JAX package's
 ``remat``, ``vq_voice_swap_tpu/models/unet.py:38-63``) rematerialises it in
 a training backward: "full" saves the block's inputs alone and reruns the
@@ -48,6 +53,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ..ops.conv1d import conv1d_bf16, routes
 from ..ops.group_norm import group_norm, group_norm_coeffs, group_norm_coeffs_int8
 from ..ops.qact import (QAct, conv1d_int8, dequantize, qact_avg_pool, qact_group_norm,
                         qact_upsample, quantize, quantize_group_norm, quantize_residual)
@@ -120,7 +126,13 @@ def conv1d(x: Union[torch.Tensor, QAct], conv: nn.Conv1d) -> torch.Tensor:
                                   dilation=conv.dilation[0])
 
     def run(x):
-        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        w, b = conv.weight, conv.bias
+        recording = torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad or (b is not None and b.requires_grad))
+        if routes(x.device.type, x.dtype, recording, x.shape,
+                  x.is_contiguous() and x.data_ptr() % 16 == 0, conv):
+            return conv1d_bf16(x, w, b, conv.dilation[0], conv)
+        bias = None if b is None else b.to(x.dtype)
         return F.conv1d(
             x, conv.weight.to(x.dtype), bias, stride=conv.stride,
             padding=conv.padding, dilation=conv.dilation,
